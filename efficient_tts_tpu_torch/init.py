@@ -1,0 +1,103 @@
+"""Seeded random parameters, as numpy trees in the JAX package's layout.
+
+Same keys, shapes and distributions as `efficient_tts_tpu/models/
+efficient_tts.py:init` and `models/hifigan.py:init_generator` (torch-style
+kaiming-uniform convs and linears, N(0, 1) embedding, N(0, 0.01) HiFi-GAN
+upsample and resblock convs, weight norm as {v, g, b} with g = ||v||), drawn
+from numpy rather than `jax.random`, so the numbers differ. Feed the result
+to `compat.py`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+
+
+def _uniform(rng, shape, bound):
+    return rng.uniform(-bound, bound, size=shape).astype(np.float32)
+
+
+def _kaiming(rng, shape, fan_in):
+    # torch's default a=sqrt(5): bound = sqrt(2/6) * sqrt(3/fan_in) = 1/sqrt(fan_in)
+    return _uniform(rng, shape, math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in))
+
+
+def _bias(rng, n, fan_in):
+    return _uniform(rng, (n,), 1.0 / math.sqrt(fan_in))
+
+
+def _linear(rng, din, dout):
+    return {"w": _kaiming(rng, (din, dout), din), "b": _bias(rng, dout, din)}
+
+
+def _conv(rng, cin, cout, k, init="torch", transpose=False):
+    fan_in = cout * k if transpose else cin * k
+    shape = (k, cin, cout)
+    w = _kaiming(rng, shape, fan_in) if init == "torch" else (
+        0.01 * rng.standard_normal(shape)).astype(np.float32)
+    return {"w": w, "b": _bias(rng, cout, fan_in)}
+
+
+def _weight_norm(p, preserved_axis=-1):
+    w = p["w"]
+    axes = tuple(i for i in range(w.ndim) if i != preserved_axis % w.ndim)
+    return {"v": w, "g": np.sqrt(np.sum(w * w, axis=axes, keepdims=True)), "b": p["b"]}
+
+
+def _res_block(rng, n_layers, c, k, use_wn):
+    layers = [_conv(rng, c, c, k) for _ in range(n_layers)]
+    return {"layers": [_weight_norm(p) if use_wn else p for p in layers]}
+
+
+def init_efts(seed: int, cfg: EftsCNNConfig) -> dict:
+    rng = np.random.default_rng(seed)
+    c = cfg.n_channels
+    params = {
+        "text_embedding": {"table": rng.standard_normal(
+            (cfg.num_symbols, cfg.symbol_embedding_dim)).astype(np.float32)},
+        "text_encoder": _res_block(rng, cfg.n_text_encoder_layer, c, cfg.k_size, cfg.use_weight_norm),
+        "text_key": _linear(rng, c, c),
+        "mel_prenet": _linear(rng, cfg.odim, c),
+        "mel_encoder": _res_block(rng, cfg.n_mel_encoder_layer, c, cfg.k_size, cfg.use_weight_norm),
+        "decoder": _res_block(rng, cfg.n_decoder_layer, c, cfg.k_size, cfg.use_weight_norm),
+        "mel_out": _linear(rng, c, cfg.odim),
+        "duration_predictor": {
+            "convs": [_conv(rng, c, c, 3) for _ in range(cfg.n_duration_layer)],
+            "norms": [{"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+                      for _ in range(cfg.n_duration_layer)],
+            "out": _linear(rng, c, 1),
+        },
+    }
+    if not cfg.share_text_encoder_key_value:
+        params["text_value"] = _linear(rng, c, c)
+    if cfg.use_mel_query_fc:
+        params["mel_query_fc"] = _linear(rng, c, c)
+    return params
+
+
+def init_generator(seed: int, cfg: HiFiGANConfig) -> dict:
+    rng = np.random.default_rng(seed)
+    c0 = cfg.upsample_initial_channel
+    params = {
+        "conv_pre": _weight_norm(_conv(rng, cfg.num_mels, c0, 7)),
+        "ups": [],
+        "resblocks": [],
+    }
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        p = _conv(rng, c0 // 2**i, c0 // 2 ** (i + 1), k, init="normal", transpose=True)
+        params["ups"].append(_weight_norm(p, preserved_axis=1))
+    ch = c0
+    for i in range(len(cfg.upsample_rates)):
+        ch = c0 // 2 ** (i + 1)
+        for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            params["resblocks"].append({
+                name: [_weight_norm(_conv(rng, ch, ch, k, init="normal")) for _ in dils]
+                for name in ("convs1", "convs2")
+            })
+    params["conv_post"] = _weight_norm(_conv(rng, ch, 1, 7))
+    return params

@@ -1,0 +1,108 @@
+"""HiFi-GAN V1 generator (ResBlock1), mel -> waveform.
+
+Counterpart of `efficient_tts_tpu/models/hifigan.py:generator` in the plain
+form it is proven equal to (`pack_small_channels=False`,
+`ups_impl="dilated"`): conv_pre k7, then per upsample leaky 0.1 ->
+transposed conv (padding (k-u)//2) -> MRF stage, then leaky 0.01 ->
+conv_post k7 -> tanh in f32. The MRF stages run through `ops/mrf.py`:
+the Hopper kernel for bf16 activations on the card. The TPU's
+space-to-depth packing, subpixel/phase strategies and serving tables
+are re-layouts for the TPU and are not carried over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from efficient_tts_tpu_torch.nn.layers import Conv1d, ConvTranspose1d, leaky_relu
+from efficient_tts_tpu_torch.ops.mrf import conv_order, mrf_stage, mrf_stage_reference
+
+LRELU_SLOPE = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class HiFiGANConfig:
+    """Same fields and defaults as the JAX package's `HiFiGANConfig` (V1)."""
+
+    resblock: str = "1"
+    upsample_rates: tuple = (8, 8, 2, 2)
+    upsample_kernel_sizes: tuple = (16, 16, 4, 4)
+    upsample_initial_channel: int = 512
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    num_mels: int = 80
+    sampling_rate: int = 22050
+    segment_size: int = 8192
+    hop_size: int = 256
+
+    @property
+    def total_upsampling(self) -> int:
+        out = 1
+        for u in self.upsample_rates:
+            out *= u
+        return out
+
+
+class MRFStage(nn.Module):
+    """The weights of one MRF stage in the kernel's layout: every conv's
+    [k, C_out, C_in] weight back to back in one flat f32 buffer, a bf16 copy
+    made once at load time, and f32 biases [n_convs, C]."""
+
+    def __init__(self, channels: int, kernel_sizes, dilation_sizes):
+        super().__init__()
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.dilation_sizes = tuple(tuple(d) for d in dilation_sizes)
+        self.shapes = [(k, channels, channels) for k, _ in conv_order(kernel_sizes, dilation_sizes)]
+        n = sum(k * channels * channels for k, _, _ in self.shapes)
+        self.register_buffer("weight", torch.zeros(n))
+        self.register_buffer("weight_bf16", torch.zeros(n, dtype=torch.bfloat16))
+        self.register_buffer("bias", torch.zeros(len(self.shapes), channels))
+
+    @torch.no_grad()
+    def load(self, weights, biases) -> None:
+        """weights: per conv [k, C_out, C_in]; biases [n_convs, C]."""
+        flat = torch.cat([torch.from_numpy(np.array(w, np.float32)).reshape(-1) for w in weights])
+        self.weight.copy_(flat)
+        self.weight_bf16.copy_(self.weight.to(torch.bfloat16))
+        self.bias.copy_(torch.from_numpy(np.array(biases, np.float32)))
+
+    def conv_weights(self, dtype) -> list:
+        flat = self.weight_bf16 if dtype == torch.bfloat16 else self.weight.to(dtype)
+        return [w.view(s) for w, s in zip(flat.split([k * a * b for k, a, b in self.shapes]), self.shapes)]
+
+    def forward(self, x, impl: str = "kernel"):
+        fn = {"kernel": mrf_stage, "plain": mrf_stage_reference}[impl]
+        return fn(x, self.conv_weights(x.dtype), self.bias, self.kernel_sizes, self.dilation_sizes)
+
+
+class HiFiGANGenerator(nn.Module):
+    def __init__(self, cfg: HiFiGANConfig):
+        super().__init__()
+        if cfg.resblock != "1":
+            raise NotImplementedError("only ResBlock1 (V1) generators are ported")
+        self.cfg = cfg
+        c0 = cfg.upsample_initial_channel
+        self.conv_pre = Conv1d(cfg.num_mels, c0, 7)
+        self.ups = nn.ModuleList()
+        self.stages = nn.ModuleList()
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            cin, cout = c0 // 2**i, c0 // 2 ** (i + 1)
+            self.ups.append(ConvTranspose1d(cin, cout, k, u, (k - u) // 2))
+            self.stages.append(MRFStage(cout, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+        self.conv_post = Conv1d(c0 // 2 ** len(cfg.upsample_rates), 1, 7)
+
+    def forward(self, mel, compute_dtype=None, mrf_impl: str = "kernel"):
+        """[B, T, num_mels] -> [B, T * total_upsampling] f32 waveform.
+        `mrf_impl="plain"` runs the MRF stages' plain PyTorch version."""
+        x = mel if compute_dtype is None else mel.to(compute_dtype)
+        x = self.conv_pre(x)
+        for up, stage in zip(self.ups, self.stages):
+            x = up(leaky_relu(x, LRELU_SLOPE))
+            x = stage(x.contiguous(), mrf_impl)
+        # the reference's F.leaky_relu before conv_post uses torch's default 0.01
+        x = self.conv_post(leaky_relu(x, 0.01))
+        return torch.tanh(x.float())[..., 0]

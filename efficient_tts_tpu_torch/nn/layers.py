@@ -1,0 +1,125 @@
+"""NN primitives on channels-last [B, T, C] activations.
+
+Counterpart of `efficient_tts_tpu/nn/layers.py`. Weights use PyTorch's
+layouts ([out, in] linear, [out, in, k] conv, [in, out, k] transposed
+conv); `compat.py` converts the JAX package's [in, out] / WIO layouts.
+Rounding follows the JAX functions: a layer computes its product in the
+activation dtype (f32 accumulation for bf16), rounds, then adds the bias
+cast to that dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def frozen_param(shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w[out, in]^T + b."""
+    return F.linear(x, w.to(x.dtype)) + b.to(x.dtype)
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """[B, T, Cin] -> [B, T, Cout]; w [Cout, Cin, k]. 'SAME' padding for odd
+    k: (k-1)//2 * dilation on both sides."""
+    padding = (w.shape[-1] - 1) // 2 * dilation
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, padding=padding, dilation=dilation)
+    return y.transpose(1, 2) + b.to(x.dtype)
+
+
+def conv_transpose1d(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int
+) -> torch.Tensor:
+    """[B, T, Cin] -> [B, (T-1)*stride - 2*padding + k, Cout]; w [Cin, Cout, k]
+    (torch ConvTranspose1d semantics)."""
+    y = F.conv_transpose1d(x.transpose(1, 2), w.to(x.dtype), None, stride=stride, padding=padding)
+    return y.transpose(1, 2) + b.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-12) -> torch.Tensor:
+    """LayerNorm over the channel axis; eps 1e-12 as in the JAX package
+    (torch's default 1e-5 would differ)."""
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).square().mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
+    """where(x >= 0, x, slope * x) with the slope rounded to x's dtype first,
+    as JAX does with a Python scalar (bf16(0.1) = 0.10009765625)."""
+    slope = torch.tensor(negative_slope, dtype=x.dtype).item()
+    return torch.where(x >= 0, x, x * slope)
+
+
+class Linear(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.weight = frozen_param((out_dim, in_dim))
+        self.bias = frozen_param((out_dim,))
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
+
+
+class Conv1d(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int):
+        super().__init__()
+        self.weight = frozen_param((out_ch, in_ch, kernel_size))
+        self.bias = frozen_param((out_ch,))
+
+    def forward(self, x):
+        return conv1d(x, self.weight, self.bias)
+
+
+class ConvTranspose1d(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int, padding: int):
+        super().__init__()
+        self.weight = frozen_param((in_ch, out_ch, kernel_size))
+        self.bias = frozen_param((out_ch,))
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x):
+        return conv_transpose1d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = frozen_param((dim,))
+        self.bias = frozen_param((dim,))
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias)
+
+
+# ---------------------------------------------------------------------------
+# weight norm on the JAX package's numpy parameter trees
+
+
+def weight_norm_kernel(v: np.ndarray, g: np.ndarray, eps: float = 0.0) -> np.ndarray:
+    """w = g * v / ||v||, reducing over the axes where g has size 1 (the
+    input axis of a transposed conv, every axis but the output elsewhere)."""
+    v = np.asarray(v, np.float64)
+    g = np.asarray(g, np.float64)
+    axes = tuple(i for i in range(v.ndim) if g.shape[i] == 1)
+    norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True) + eps)
+    return (g * v / norm).astype(np.float32)
+
+
+def fold_weight_norm(params):
+    """Recursively collapse every {v, g, b} into {w, b}; {w, b} passes."""
+    if isinstance(params, dict):
+        if "v" in params and "g" in params:
+            return {"w": weight_norm_kernel(params["v"], params["g"]),
+                    "b": np.asarray(params["b"], np.float32)}
+        return {k: fold_weight_norm(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [fold_weight_norm(v) for v in params]
+    return np.asarray(params, np.float32)

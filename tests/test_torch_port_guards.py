@@ -1,0 +1,74 @@
+"""Guards of the port: it imports no JAX and nothing of the JAX package, and
+its entry points never fall back to the CPU on their own."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import efficient_tts_tpu_torch
+from efficient_tts_tpu_torch import compat, init, pipeline
+from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import importlib, pkgutil, sys
+import efficient_tts_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "efficient_tts_tpu" or m.startswith("efficient_tts_tpu.")]
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    expected = [m.name for m in pkgutil.walk_packages(efficient_tts_tpu_torch.__path__,
+                                                      "efficient_tts_tpu_torch.")]
+    assert n_modules == len(expected) >= 15
+
+
+EFTS_CFG = EftsCNNConfig(num_symbols=10, symbol_embedding_dim=8, n_channels=8, n_text_encoder_layer=1,
+                         n_decoder_layer=1, dropout_rate=0.0)
+VOC_CFG = HiFiGANConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                        resblock_dilation_sizes=((1,),))
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    ep, vp = init.init_efts(0, EFTS_CFG), init.init_generator(1, VOC_CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compat.efts_cnn_from_jax(ep, EFTS_CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compat.hifigan_generator_from_jax(vp, VOC_CFG)
+    em = compat.efts_cnn_from_jax(ep, EFTS_CFG, device="cpu")
+    vm = compat.hifigan_generator_from_jax(vp, VOC_CFG, device="cpu")
+    text, lengths = np.ones((1, 4), np.int32), np.array([4], np.int32)
+    for call in (lambda: pipeline.synthesize(em, vm, text, lengths),
+                 lambda: pipeline.synthesize_fixed(em, vm, text, lengths, 32),
+                 lambda: pipeline.predict_lengths(em, text, lengths)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    wav, wl = pipeline.synthesize(em, vm, text, lengths, device="cpu")
+    assert wav.shape[0] == 1 and wl.shape == (1,)
+
+
+def test_models_on_another_device_than_the_call_raise():
+    em = compat.efts_cnn_from_jax(init.init_efts(0, EFTS_CFG), EFTS_CFG, device="cpu").to("meta")
+    vm = compat.hifigan_generator_from_jax(init.init_generator(1, VOC_CFG), VOC_CFG, device="cpu")
+    with pytest.raises(ValueError, match="holds tensors on meta"):
+        pipeline.synthesize_fixed(em, vm, np.ones((1, 4)), np.array([4]), 32, device="cpu")
