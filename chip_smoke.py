@@ -9,16 +9,31 @@ Phases, each of which raises on failure:
   3. kernel vs plain version: every MRF stage of the V1 generator (C =
      256/128/64/32 at its main-path length for B=16, T2=512) through the
      Hopper kernel and through `mrf_stage_reference`, on the same bf16
-     inputs;
-  4. main path at full width (EFTS-CNN with 76 symbols, HiFi-GAN V1, seeded
-     random weights through the weight bridge): `synthesize` on a few
-     ragged batches and `synthesize_fixed` at T2=512, bf16; checks shapes,
-     lengths, finiteness, the MRF launch counts, and one wav against the
-     same path with the plain MRF version;
+     inputs; the flash attention forward at the EFTS-Transformer's shapes
+     ([16, 4, 512, 96] without segment ids, [16, 4, 128, 96] with ragged
+     ones) against `flash_attention_reference`, on the same f32 inputs;
+  4. main paths at full width, seeded random weights through the weight
+     bridge, HiFi-GAN V1 after each; the launch counts are set to 0 before
+     each path and read after it:
+     a. EFTS-CNN with 76 symbols: `synthesize` on a few ragged batches and
+        `synthesize_fixed` at T2=512, bf16; checks shapes, lengths,
+        finiteness, the MRF launch counts, and one wav against the same
+        path with the plain MRF version;
+     b. EFTS-Transformer at `lj_efts_transformer_phnseq.yaml`'s widths
+        with attn_impl="flash": `synthesize` on 3 ragged batches at T1=128
+        with bucket_multiple=128 (every attention call eligible) and
+        `synthesize_fixed` at T2=512, bf16; the same checks, 8 flash
+        launches per synthesis, and one wav against the same path with
+        the plain attention version;
   5. timing with CUDA events (median and quartiles of 20 runs after
-     warmup): the end-to-end `synthesize_fixed`, its device time by
-     kernel from torch.profiler, and each stage kernel beside its bound,
-     its plain version and the 18 cuDNN convs of the stage;
+     warmup): each path's `synthesize_fixed`, its device time by kernel
+     from torch.profiler, and each MRF stage kernel beside its bound, its
+     plain version and the 18 cuDNN convs of the stage. The flash kernel
+     at both shapes, its plain version and `F.scaled_dot_product_attention`
+     are timed by their device time (torch.profiler, 20 calls), since one
+     call's CUDA-event time there is mostly the host's launch time, which
+     is printed beside it; bounds from `efficient_tts_tpu_torch/utils/
+     roofline.py`;
   6. a `{"kernels": [...]}` line, then the card line, then the last line
      `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
@@ -31,10 +46,11 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 B, T1, T2 = 16, 96, 512
+T1_TR = 128  # the transformer's text length: a multiple of 128, so its text encoder runs the kernel
 N_TIMED = 20
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Kernel vs plain version: the same bf16 rounding points, but f32 sums of up to
 # 11*256 terms taken in another order flip a bf16 rounding now and then, and
 # each flip carries down the chain of 6 convs (measured at C=256 on an H100:
@@ -42,10 +58,22 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 STAGE_TOL = {"max_abs_over_range": 2**-5, "rel_rms": 1e-2}
 # whole waveform, kernel vs plain MRF stages on the same weights
 WAV_TOL = {"max_abs_over_range": 0.05, "rel_rms": 1e-2}
+# Flash kernel vs plain version: the kernel rounds q, k, v and the softmax
+# weights to TF32 (2^-11 relative), the plain version is f32; on N(0, 1)
+# inputs that leaves errors near 1e-3 of the output range.
+FLASH_TOL = {"max_abs_over_range": 1e-2, "rel_rms": 2e-3}
+# whole waveform, flash kernel vs plain attention on the same weights: the
+# TF32 rounding of 8 attention layers reaches the mel, which the bf16
+# vocoder then rounds; the bound is the MRF one
+TR_WAV_TOL = WAV_TOL
+
+
+# the card's name and power limit, stamped on every phase line once known
+CARD = {}
 
 
 def log(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, **CARD} if "phase" in obj else obj), flush=True)
 
 
 def err_stats(out, ref):
@@ -101,6 +129,26 @@ def device_profile(torch, fn, n=3):
     return kernels
 
 
+def device_ms(torch, fn, n=N_TIMED):
+    """Device time of one call of `fn`, summed over its kernels (torch.profiler,
+    `n` calls), or None when the profiler saw no device time. Unlike the
+    CUDA-event time of a single call, it leaves out the host's launch time."""
+    prof = device_profile(torch, fn, n)
+    return sum(v[0] for v in prof.values()) if prof else None
+
+
+def host_us(torch, fn, n=50):
+    """Host time to issue one call of `fn` (no synchronisation inside), in us."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes):
     """Seeded bf16 activations and unit-gain weights (std 1/sqrt(k*C)), so
     every conv of the chain moves the output."""
@@ -115,10 +163,69 @@ def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes):
 
 
 def stage_bound_ms(c, t, order):
-    flops = 2.0 * B * t * c * c * sum(k for k, _ in order)
-    nbytes = 2 * B * t * c * 2 + sum(k * c * c * 2 for k, _ in order) + len(order) * c * 4
-    by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes"), flops
+    from efficient_tts_tpu_torch.utils.roofline import bound_ms, mrf_stage_work
+
+    ops, nbytes = mrf_stage_work(B, t, c, [k for k, _ in order], act_bytes=2, weight_bytes=2)
+    return (*bound_ms(ops, nbytes, "bf16"), ops)
+
+
+def flash_inputs(torch, t, seed, dev, segmented):
+    """Seeded N(0, 1) q, k, v as the [B, H, T, 96] views of [B, T, H, 96]
+    tensors that the q/k/v linears give; ragged segment ids (valid 1, pad
+    0) with one row all valid, as the text encoder's key-padding mask gives."""
+    from efficient_tts_tpu_torch.ops.flash_attention import SegmentIds
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((B, t, 4, 96), generator=g).to(dev).transpose(1, 2) for _ in range(3))
+    seg = None
+    if segmented:
+        lengths = torch.randint(t // 2, t + 1, (B,), generator=g)
+        lengths[0] = t
+        ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
+        seg = SegmentIds(ids, ids)
+    return q, k, v, seg
+
+
+def flash_bound_ms(q, seg):
+    """Each of q, k, v, o moved once (and the two id arrays), against the two
+    products at the TF32 tensor-core peak (the kernel's operand precision)."""
+    from efficient_tts_tpu_torch.utils.roofline import bound_ms, flash_work
+
+    b, h, t, dk = q.shape
+    ops, nbytes = flash_work(b, h, t, dk, seg is not None)
+    return (*bound_ms(ops, nbytes, "tf32"), ops)
+
+
+def ragged_batches(rng, t1, num_symbols, n=3):
+    batches = []
+    for _ in range(n):
+        lengths = rng.integers(t1 // 2, t1 + 1, B).astype(np.int32)
+        lengths[0] = t1
+        text = np.zeros((B, t1), np.int32)
+        for i, n_tok in enumerate(lengths):
+            text[i, :n_tok] = rng.integers(1, num_symbols, n_tok)
+        batches.append((text, lengths))
+    return batches
+
+
+def check_synthesize(pipeline, model, batches, results, hop, multiple):
+    """Shapes, finiteness, bucket, lengths from the stage-1 readback and a
+    silent tail, for each `synthesize` result."""
+    for (text, lengths), (wav, wl) in zip(batches, results):
+        mel_len = pipeline.predict_lengths(model, text, lengths).cpu().numpy()
+        t2 = wav.shape[1] // hop
+        if wav.shape != (B, t2 * hop) or t2 % multiple or not np.all(np.isfinite(wav)):
+            raise AssertionError(f"synthesize gave wav {wav.shape}, finite={np.isfinite(wav).all()}")
+        if not np.array_equal(wl, np.clip(mel_len, 1, t2) * hop):
+            raise AssertionError(f"wav_lengths {wl} do not follow the stage-1 readback {mel_len}")
+        if any(np.any(wav[i, n:] != 0) for i, n in enumerate(wl)):
+            raise AssertionError("waveform tail beyond wav_lengths is not silent")
+
+
+def check_fixed(torch, wav, mel, t2, hop, odim):
+    if (wav.shape != (B, t2 * hop) or mel.shape != (B, t2, odim)
+            or not bool(torch.isfinite(wav).all()) or not bool(torch.isfinite(mel).all())):
+        raise AssertionError(f"synthesize_fixed gave wav {tuple(wav.shape)} mel {tuple(mel.shape)}")
 
 
 def main() -> int:
@@ -129,12 +236,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
+    import dataclasses
+
     import torch.nn.functional as F
 
     from efficient_tts_tpu_torch import _build, compat, init, pipeline
     from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+    from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
     from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
     from efficient_tts_tpu_torch.ops import mrf
 
     torch.backends.cudnn.allow_tf32 = False
@@ -145,6 +255,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    CARD["card"] = card
     log({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build
@@ -175,23 +286,30 @@ def main() -> int:
             raise AssertionError(f"MRF kernel disagrees with its plain version at C={c}: {stats}")
         kernel_rows[c] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
         del x, ws, bs, out
+    # the flash kernel: the decoder's shape (no segment ids) and the text encoder's
+    flash_shapes = {False: T2, True: T1_TR}
+    flash_rows = {}
+    for segmented, t in flash_shapes.items():
+        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented)
+        out = fa.flash_attention(q, k, v, seg, sm_scale=96**-0.5)
+        torch.cuda.synchronize()
+        stats = err_stats(out, fa.flash_attention_reference(q, k, v, seg, sm_scale=96**-0.5))
+        log({"phase": "kernel_vs_plain", "kernel": "flash_attention", "shape": list(q.shape),
+             "segment_ids": segmented, **stats, "tolerance": FLASH_TOL})
+        if not within(stats, FLASH_TOL):
+            raise AssertionError(f"flash kernel disagrees with its plain version at {tuple(q.shape)}: {stats}")
+        flash_rows[segmented] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
+        del q, k, v, seg, out
 
-    # 4. main path at full width
+    # 4a. EFTS-CNN main path at full width
     efts = compat.efts_cnn_from_jax(init.init_efts(0, efts_cfg), efts_cfg, device="cuda")
     voc = compat.hifigan_generator_from_jax(init.init_generator(1, voc_cfg), voc_cfg, device="cuda")
-    rng = np.random.default_rng(0)
-    batches = []
-    for _ in range(3):
-        lengths = rng.integers(T1 // 2, T1 + 1, B).astype(np.int32)
-        lengths[0] = T1
-        text = np.zeros((B, T1), np.int32)
-        for i, n in enumerate(lengths):
-            text[i, :n] = rng.integers(1, efts_cfg.num_symbols, n)
-        batches.append((text, lengths))
+    batches = ragged_batches(np.random.default_rng(0), T1, efts_cfg.num_symbols)
     hop = voc_cfg.hop_size
     bf16 = torch.bfloat16
 
     mrf.reset_launches()
+    fa.reset_launches()
     results = [pipeline.synthesize(efts, voc, text, lengths, compute_dtype=bf16) for text, lengths in batches]
     wav_fixed, wl_fixed, mel_fixed = pipeline.synthesize_fixed(
         efts, voc, batches[0][0], batches[0][1], T2, compute_dtype=bf16)
@@ -199,22 +317,13 @@ def main() -> int:
     launches = dict(mrf.launches)
     n_synth = len(batches) + 1
     expected = {c: 18 * n_synth for c, _ in stages}
-    log({"phase": "main_path", "syntheses": n_synth, "mrf_launches": launches, "expected": expected})
+    log({"phase": "main_path", "model": "efts_cnn", "syntheses": n_synth, "mrf_launches": launches,
+         "expected": expected, "flash_launches": sum(fa.launches.values())})
     if launches != expected:
         raise AssertionError(f"MRF launches {launches}, expected {expected}")
 
-    for (text, lengths), (wav, wl) in zip(batches, results):
-        mel_len = pipeline.predict_lengths(efts, text, lengths).cpu().numpy()
-        t2 = wav.shape[1] // hop
-        if wav.shape != (B, t2 * hop) or t2 % 64 or not np.all(np.isfinite(wav)):
-            raise AssertionError(f"synthesize gave wav {wav.shape}, finite={np.isfinite(wav).all()}")
-        if not np.array_equal(wl, np.clip(mel_len, 1, t2) * hop):
-            raise AssertionError(f"wav_lengths {wl} do not follow the stage-1 readback {mel_len}")
-        if any(np.any(wav[i, n:] != 0) for i, n in enumerate(wl)):
-            raise AssertionError("waveform tail beyond wav_lengths is not silent")
-    if (wav_fixed.shape != (B, T2 * hop) or mel_fixed.shape != (B, T2, efts_cfg.odim)
-            or not bool(torch.isfinite(wav_fixed).all()) or not bool(torch.isfinite(mel_fixed).all())):
-        raise AssertionError(f"synthesize_fixed gave wav {tuple(wav_fixed.shape)} mel {tuple(mel_fixed.shape)}")
+    check_synthesize(pipeline, efts, batches, results, hop, 64)
+    check_fixed(torch, wav_fixed, mel_fixed, T2, hop, efts_cfg.odim)
     wav_plain, wl_plain, _ = pipeline.synthesize_fixed(
         efts, voc, batches[0][0], batches[0][1], T2, compute_dtype=bf16, mrf_impl="plain")
     stats = err_stats(wav_fixed, wav_plain)
@@ -222,30 +331,87 @@ def main() -> int:
          "tolerance": WAV_TOL, "buckets": [int(w.shape[1] // hop) for w, _ in results]})
     if not torch.equal(wl_fixed, wl_plain) or not within(stats, WAV_TOL):
         raise AssertionError(f"synthesize_fixed with the MRF kernel disagrees with the plain path: {stats}")
+    del wav_fixed, wav_plain, mel_fixed, results
+
+    # 4b. EFTS-Transformer main path at full width (lj_efts_transformer_phnseq.yaml)
+    tr_cfg = EftsTransformerConfig(num_symbols=76, dropout_rate=0.0, sigma=0.01, attn_impl="flash")
+    tr_params = init.init_efts_transformer(2, tr_cfg)
+    # random weights give durations near exp(0) - 1 = 0; this bias gives about
+    # 4.5 frames per token (the bench shape T1=96, T2=512 has 5.3), so the
+    # ragged T1=128 batches land in 640-frame buckets
+    tr_params["duration_predictor"]["out"]["b"][:] = 1.3
+    tr = compat.efts_transformer_from_jax(tr_params, tr_cfg, device="cuda")
+    tr_plain = compat.efts_transformer_from_jax(
+        tr_params, dataclasses.replace(tr_cfg, attn_impl="flash_plain"), device="cuda")
+    tr_batches = ragged_batches(np.random.default_rng(1), T1_TR, tr_cfg.num_symbols)
+
+    mrf.reset_launches()
+    fa.reset_launches()
+    tr_results = [pipeline.synthesize(tr, voc, text, lengths, bucket_multiple=128, compute_dtype=bf16)
+                  for text, lengths in tr_batches]
+    wav_fixed, wl_fixed, mel_fixed = pipeline.synthesize_fixed(
+        tr, voc, tr_batches[0][0], tr_batches[0][1], T2, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    tr_launches, tr_flash = dict(mrf.launches), dict(fa.launches)
+    n_tr = len(tr_batches) + 1
+    expected = {c: 18 * n_tr for c, _ in stages}
+    # per synthesis: 4 text-encoder layers (segment ids) and 4 decoder layers (none)
+    expected_flash = {True: tr_cfg.n_text_encoder_layer * n_tr, False: tr_cfg.n_decoder_layer * n_tr}
+    log({"phase": "main_path", "model": "efts_transformer", "syntheses": n_tr, "mrf_launches": tr_launches,
+         "expected": expected, "flash_launches": {str(k): n for k, n in tr_flash.items()},
+         "flash_expected": {str(k): n for k, n in expected_flash.items()}})
+    if tr_launches != expected or tr_flash != expected_flash:
+        raise AssertionError(f"transformer path launches MRF {tr_launches}, flash {tr_flash}; "
+                             f"expected {expected}, {expected_flash}")
+
+    check_synthesize(pipeline, tr, tr_batches, tr_results, hop, 128)
+    check_fixed(torch, wav_fixed, mel_fixed, T2, hop, tr_cfg.odim)
+    wav_plain, wl_plain, mel_plain = pipeline.synthesize_fixed(
+        tr_plain, voc, tr_batches[0][0], tr_batches[0][1], T2, compute_dtype=bf16)
+    # a TF32 difference in e can move round(e) by one frame; compare where both are valid
+    both = torch.minimum(wl_fixed, wl_plain)
+    valid = torch.arange(T2 * hop, device=dev)[None, :] < both[:, None]
+    stats = err_stats(wav_fixed * valid, wav_plain * valid)
+    mel_valid = valid[:, ::hop, None]
+    mel_stats = err_stats(mel_fixed * mel_valid, mel_plain * mel_valid)
+    log({"phase": "main_path_vs_plain_attention", "t2": T2, "wav_lengths": wl_fixed.tolist(),
+         "wav_lengths_plain": wl_plain.tolist(), **stats, "mel": mel_stats, "tolerance": TR_WAV_TOL,
+         "buckets": [int(w.shape[1] // hop) for w, _ in tr_results]})
+    if (not within(stats, TR_WAV_TOL) or not within(mel_stats, TR_WAV_TOL)
+            or int((wl_fixed - wl_plain).abs().max()) > hop):
+        raise AssertionError(f"synthesize_fixed with the flash kernel disagrees with the plain path: {stats}")
+    del wav_fixed, wav_plain, mel_fixed, mel_plain, tr_results
 
     # 5. timing
-    text, lengths = batches[0]
-    t_kernel = time_ms(torch, lambda: pipeline.synthesize_fixed(efts, voc, text, lengths, T2, compute_dtype=bf16))
-    t_plain = time_ms(torch, lambda: pipeline.synthesize_fixed(
-        efts, voc, text, lengths, T2, compute_dtype=bf16, mrf_impl="plain"))
-    ms = t_kernel["median"]
-    audio_s = B * T2 * hop / voc_cfg.sampling_rate
-    log({"phase": "timing", "what": "synthesize_fixed", "B": B, "T1": T1, "T2": T2, "dtype": "bf16",
-         "ms": ms, "ms_p25": t_kernel["p25"], "ms_p75": t_kernel["p75"], "n": t_kernel["n"],
-         "audio_s_per_s": audio_s / (ms / 1e3), "plain_mrf_ms": t_plain["median"], "card": card})
-    prof = device_profile(torch, lambda: pipeline.synthesize_fixed(efts, voc, text, lengths, T2,
-                                                                   compute_dtype=bf16))
-    if prof:
-        busy = sum(v[0] for v in prof.values())
-        mrf_ms = sum(v[0] for k, v in prof.items() if "mrf_conv_kernel" in k)
-        top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:8]
-        log({"phase": "profile", "what": "synthesize_fixed", "device_busy_ms": busy,
-             "idle_share": max(0.0, 1.0 - busy / ms), "mrf_kernel_ms": mrf_ms,
-             "kernel_launches": sum(v[1] for v in prof.values()),
-             "top": [[k[:90], v[0], v[1]] for k, v in top], "card": card})
-    else:
-        log({"phase": "profile", "what": "synthesize_fixed", "device_busy_ms": "not measured"})
-    del wav_fixed, wav_plain, mel_fixed, results
+    def time_path(name, model, text, lengths, plain_model, plain_kw, extra):
+        """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
+        t_kernel = time_ms(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
+                                                                     compute_dtype=bf16))
+        t_plain = time_ms(torch, lambda: pipeline.synthesize_fixed(
+            plain_model, voc, text, lengths, T2, compute_dtype=bf16, **plain_kw))
+        ms = t_kernel["median"]
+        audio_s = B * T2 * hop / voc_cfg.sampling_rate
+        log({"phase": "timing", "what": "synthesize_fixed", "model": name, "B": B, "T1": text.shape[1],
+             "T2": T2, "dtype": "bf16", "ms": ms, "ms_p25": t_kernel["p25"], "ms_p75": t_kernel["p75"],
+             "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"]})
+        prof = device_profile(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
+                                                                       compute_dtype=bf16))
+        if prof:
+            busy = sum(v[0] for v in prof.values())
+            top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
+            log({"phase": "profile", "what": "synthesize_fixed", "model": name, "device_busy_ms": busy,
+                 "idle_share": max(0.0, 1.0 - busy / ms),
+                 "mrf_kernel_ms": sum(v[0] for k, v in prof.items() if "mrf_conv_kernel" in k),
+                 "flash_kernel_ms": sum(v[0] for k, v in prof.items() if "flash_fwd_kernel" in k),
+                 "flash_kernel_launches": sum(v[1] for k, v in prof.items() if "flash_fwd_kernel" in k),
+                 "kernel_launches": sum(v[1] for v in prof.values()),
+                 "top": [[k[:90], v[0], v[1]] for k, v in top]})
+        else:
+            log({"phase": "profile", "what": "synthesize_fixed", "model": name, "device_busy_ms": "not measured"})
+
+    time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms")
+    time_path("efts_transformer", tr, *tr_batches[0], tr_plain, {}, "plain_attention_ms")
+    del efts, tr, tr_plain
 
     kernels = []
     for c, t in stages:
@@ -267,14 +433,51 @@ def main() -> int:
             "name": f"mrf_stage_c{c}", "route": "cuda",
             "source": "efficient_tts_tpu_torch/csrc/mrf_stage.cu",
             "replaces": "efficient_tts_tpu/ops/pallas/mrf_packed.py:284",
-            "launches": launches.get(c, 0), **kernel_rows[c], "tolerance": STAGE_TOL,
+            "launches": launches.get(c, 0),
+            "launches_by_path": {"efts_cnn": launches.get(c, 0), "efts_transformer": tr_launches.get(c, 0)},
+            **kernel_rows[c], "tolerance": STAGE_TOL,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
         }
         kernels.append(row)
         log({"phase": "timing", "what": row["name"], "shape": [B, t, c], "tflops": flops / (k_ms * 1e9),
              "bound_share": bound / k_ms, "ms_p25": t_k["p25"], "ms_p75": t_k["p75"], "n": t_k["n"],
-             "card": card, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
         del x, ws, bs, x_ncw, w_ncw
+
+    for segmented, t in flash_shapes.items():
+        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented)
+        scale = 96**-0.5
+        mask = None if seg is None else (seg.q[:, None, :, None] == seg.kv[:, None, None, :])
+        calls = {
+            "kernel": lambda: fa.flash_attention(q, k, v, seg, scale),
+            "plain": lambda: fa.flash_attention_reference(q, k, v, seg, scale),
+            "library": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+        }
+        # device time per call (the kernel's own time), and the CUDA-event time
+        # of one call, which includes the host's launch time when that is longer
+        dev_ms = {name: device_ms(torch, fn) for name, fn in calls.items()}
+        call_ms = {name: time_ms(torch, fn) for name, fn in calls.items()}
+        k_host_us = host_us(torch, calls["kernel"])
+        ms = {name: dev_ms[name] if dev_ms[name] is not None else call_ms[name]["median"] for name in calls}
+        bound, bound_by, flops = flash_bound_ms(q, seg)
+        row = {
+            "name": "flash_attention_fwd_" + ("text_encoder" if segmented else "decoder"), "route": "cuda",
+            "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "efficient_tts_tpu/nn/attention.py:56",
+            "pallas_call": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (jax 0.9.0)",
+            "launches": tr_flash.get(segmented, 0), "launches_by_path": {"efts_transformer": tr_flash.get(segmented, 0)},
+            **flash_rows[segmented], "tolerance": FLASH_TOL, "precision": "tf32 operands, f32 softmax and sums",
+            "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": ms["library"], "timed_by": "device" if dev_ms["kernel"] is not None else "event",
+        }
+        kernels.append(row)
+        log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "segment_ids": segmented,
+             "tflops": flops / (row["ms"] * 1e9), "bound_share": bound / row["ms"],
+             "call_ms": {name: v["median"] for name, v in call_ms.items()},
+             "kernel_call_ms_p25": call_ms["kernel"]["p25"], "kernel_call_ms_p75": call_ms["kernel"]["p75"],
+             "kernel_host_us": k_host_us, "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
+             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
+        del q, k, v, seg, mask, calls
 
     # 6. result
     log({"kernels": kernels})

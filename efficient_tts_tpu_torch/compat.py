@@ -1,8 +1,9 @@
 """Weight bridge: the JAX package's parameter trees -> the port's modules.
 
-Takes the nested dicts of `efficient_tts_tpu` (`efts.init`,
-`hg.init_generator`, or their checkpoints) holding numpy arrays, with each
-conv either weight-normed {v, g, b} or plain {w, b}. Weight norm is folded
+Takes the nested dicts of `efficient_tts_tpu` (`efts.init`, the
+EFTS-Transformer's `init`, `hg.init_generator`, or their checkpoints)
+holding numpy arrays, with each conv either weight-normed {v, g, b} or
+plain {w, b}. Weight norm is folded
 once here (eps 0). Layouts: linear [in, out] -> [out, in]; conv WIO
 [k, in, out] -> [out, in, k]; transposed conv WIO -> [in, out, k]; MRF
 stage convs -> the kernel's [k, out, in], each stage's 18 laid out once.
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig
+from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer, EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
 from efficient_tts_tpu_torch.nn.layers import fold_weight_norm
 from efficient_tts_tpu_torch.utils.device import resolve_device
@@ -42,6 +44,19 @@ def _load_conv_transpose(mod, p):
     _set(mod.bias, p["b"])
 
 
+def _load_norm(mod, p):
+    _set(mod.scale, p["scale"])
+    _set(mod.bias, p["bias"])
+
+
+def _load_duration_predictor(mod, p):
+    for conv, cp in zip(mod.convs, p["convs"], strict=True):
+        _load_conv(conv, cp)
+    for norm, npar in zip(mod.norms, p["norms"], strict=True):
+        _load_norm(norm, npar)
+    _load_linear(mod.out, p["out"])
+
+
 @torch.no_grad()
 def efts_cnn_from_jax(params: dict, cfg: EftsCNNConfig, device="cuda") -> EftsCNN:
     dev = resolve_device(device)
@@ -54,13 +69,34 @@ def efts_cnn_from_jax(params: dict, cfg: EftsCNNConfig, device="cuda") -> EftsCN
     value = p["text_key"] if cfg.share_text_encoder_key_value else p["text_value"]
     _load_linear(model.text_value, value)
     _load_linear(model.mel_out, p["mel_out"])
-    dp = p["duration_predictor"]
-    for mod, cp in zip(model.duration_predictor.convs, dp["convs"], strict=True):
-        _load_conv(mod, cp)
-    for mod, npar in zip(model.duration_predictor.norms, dp["norms"], strict=True):
-        _set(mod.scale, npar["scale"])
-        _set(mod.bias, npar["bias"])
-    _load_linear(model.duration_predictor.out, dp["out"])
+    _load_duration_predictor(model.duration_predictor, p["duration_predictor"])
+    return model.to(dev).eval()
+
+
+def _load_transformer_block(block, p):
+    for layer, lp in zip(block.layers, p["layers"], strict=True):
+        for name in ("q", "k", "v", "out"):
+            _load_linear(getattr(layer.self_attn, name), lp["self_attn"][name])
+        for name, fp in lp["ff"].items():  # conv1/conv2 or w1/w2
+            (_load_conv if name.startswith("conv") else _load_linear)(getattr(layer.ff, name), fp)
+        _load_norm(layer.norm1, lp["norm1"])
+        _load_norm(layer.norm2, lp["norm2"])
+    _load_norm(block.final_norm, p["final_norm"])
+
+
+@torch.no_grad()
+def efts_transformer_from_jax(params: dict, cfg: EftsTransformerConfig, device="cuda") -> EftsTransformer:
+    """The text key, mel prenet and mel encoder (training only) are ignored."""
+    dev = resolve_device(device)
+    p = fold_weight_norm(params)
+    model = EftsTransformer(cfg)
+    _set(model.text_embedding, p["text_embedding"]["table"])
+    _set(model.pe_scale, p["pe_scale"])
+    _load_transformer_block(model.text_encoder, p["text_encoder"])
+    _load_transformer_block(model.decoder, p["decoder"])
+    _load_linear(model.text_value, p["text_value"])
+    _load_linear(model.mel_out, p["mel_out"])
+    _load_duration_predictor(model.duration_predictor, p["duration_predictor"])
     return model.to(dev).eval()
 
 

@@ -1,7 +1,8 @@
 """Seeded random parameters, as numpy trees in the JAX package's layout.
 
 Same keys, shapes and distributions as `efficient_tts_tpu/models/
-efficient_tts.py:init` and `models/hifigan.py:init_generator` (torch-style
+efficient_tts.py:init`, `models/efficient_tts_transformer.py:init` and
+`models/hifigan.py:init_generator` (torch-style
 kaiming-uniform convs and linears, N(0, 1) embedding, N(0, 0.01) HiFi-GAN
 upsample and resblock convs, weight norm as {v, g, b} with g = ||v||), drawn
 from numpy rather than `jax.random`, so the numbers differ. Feed the result
@@ -15,6 +16,7 @@ import math
 import numpy as np
 
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
 
 
@@ -54,30 +56,69 @@ def _res_block(rng, n_layers, c, k, use_wn):
     return {"layers": [_weight_norm(p) if use_wn else p for p in layers]}
 
 
+def _layer_norm(c):
+    return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+
+
+def _duration_predictor(rng, c, n_layers):
+    return {
+        "convs": [_conv(rng, c, c, 3) for _ in range(n_layers)],
+        "norms": [_layer_norm(c) for _ in range(n_layers)],
+        "out": _linear(rng, c, 1),
+    }
+
+
+def _embedding(rng, n, dim):
+    return {"table": rng.standard_normal((n, dim)).astype(np.float32)}
+
+
 def init_efts(seed: int, cfg: EftsCNNConfig) -> dict:
     rng = np.random.default_rng(seed)
     c = cfg.n_channels
     params = {
-        "text_embedding": {"table": rng.standard_normal(
-            (cfg.num_symbols, cfg.symbol_embedding_dim)).astype(np.float32)},
+        "text_embedding": _embedding(rng, cfg.num_symbols, cfg.symbol_embedding_dim),
         "text_encoder": _res_block(rng, cfg.n_text_encoder_layer, c, cfg.k_size, cfg.use_weight_norm),
         "text_key": _linear(rng, c, c),
         "mel_prenet": _linear(rng, cfg.odim, c),
         "mel_encoder": _res_block(rng, cfg.n_mel_encoder_layer, c, cfg.k_size, cfg.use_weight_norm),
         "decoder": _res_block(rng, cfg.n_decoder_layer, c, cfg.k_size, cfg.use_weight_norm),
         "mel_out": _linear(rng, c, cfg.odim),
-        "duration_predictor": {
-            "convs": [_conv(rng, c, c, 3) for _ in range(cfg.n_duration_layer)],
-            "norms": [{"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
-                      for _ in range(cfg.n_duration_layer)],
-            "out": _linear(rng, c, 1),
-        },
+        "duration_predictor": _duration_predictor(rng, c, cfg.n_duration_layer),
     }
     if not cfg.share_text_encoder_key_value:
         params["text_value"] = _linear(rng, c, c)
     if cfg.use_mel_query_fc:
         params["mel_query_fc"] = _linear(rng, c, c)
     return params
+
+
+def _transformer_block(rng, n_layers, cfg: EftsTransformerConfig):
+    c, k, hidden = cfg.n_channels, cfg.kernel_size, cfg.ff_hidden
+
+    def layer():
+        ff = ({"conv1": _conv(rng, c, hidden, k), "conv2": _conv(rng, hidden, c, k)} if cfg.use_conv_ff
+              else {"w1": _linear(rng, c, hidden), "w2": _linear(rng, hidden, c)})
+        return {"self_attn": {name: _linear(rng, c, c) for name in ("q", "k", "v", "out")},
+                "ff": ff, "norm1": _layer_norm(c), "norm2": _layer_norm(c)}
+
+    return {"layers": [layer() for _ in range(n_layers)], "final_norm": _layer_norm(c)}
+
+
+def init_efts_transformer(seed: int, cfg: EftsTransformerConfig) -> dict:
+    rng = np.random.default_rng(seed)
+    c = cfg.n_channels
+    return {
+        "text_embedding": _embedding(rng, cfg.num_symbols, c),
+        "text_encoder": _transformer_block(rng, cfg.n_text_encoder_layer, cfg),
+        "text_key": _linear(rng, c, c),
+        "text_value": _linear(rng, c, c),
+        "mel_prenet": _linear(rng, cfg.odim, c),
+        "mel_encoder": _transformer_block(rng, cfg.n_mel_encoder_layer, cfg),
+        "decoder": _transformer_block(rng, cfg.n_decoder_layer, cfg),
+        "mel_out": _linear(rng, c, cfg.odim),
+        "duration_predictor": _duration_predictor(rng, c, cfg.n_duration_layer),
+        "pe_scale": np.ones((), np.float32),
+    }
 
 
 def init_generator(seed: int, cfg: HiFiGANConfig) -> dict:

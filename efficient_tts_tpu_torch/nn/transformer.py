@@ -1,0 +1,75 @@
+"""Transformer encoder blocks of the EFTS-Transformer, inference path.
+
+Counterpart of `efficient_tts_tpu/nn/transformer.py`: `multi_layered_conv1d`,
+`positionwise_ff`, `encoder_layer` and `transformer_block` with
+`normalize_before=True` (the only setting the models use) and no dropout.
+A layer is x + attn(norm1(x)), then x + ff(norm2(x)); the block ends with
+`final_norm`. LayerNorm eps is 1e-12, the conv feed-forward is two 'SAME'
+convs without weight norm.
+
+Dtypes follow JAX's promotions: the f32 LayerNorm scale turns a bf16 input
+into f32, so attention and feed-forward run in f32 and the bf16 residual
+plus the f32 branch gives f32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from efficient_tts_tpu_torch.nn.attention import MultiHeadAttention
+from efficient_tts_tpu_torch.nn.layers import Conv1d, LayerNorm, Linear
+
+
+class MultiLayeredConv1d(nn.Module):
+    """conv k -> ReLU -> conv k (the FastSpeech FFT block)."""
+
+    def __init__(self, in_ch: int, hidden: int, kernel_size: int = 3):
+        super().__init__()
+        self.conv1 = Conv1d(in_ch, hidden, kernel_size)
+        self.conv2 = Conv1d(hidden, in_ch, kernel_size)
+
+    def forward(self, x):
+        return self.conv2(torch.relu(self.conv1(x)))
+
+
+class PositionwiseFF(nn.Module):
+    """linear -> ReLU -> linear."""
+
+    def __init__(self, idim: int, hidden: int):
+        super().__init__()
+        self.w1 = Linear(idim, hidden)
+        self.w2 = Linear(hidden, idim)
+
+    def forward(self, x):
+        return self.w2(torch.relu(self.w1(x)))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, n_feat: int, n_head: int, ff_hidden: int, use_conv_ff: bool = True,
+                 kernel_size: int = 3):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(n_feat, n_head)
+        self.ff = (MultiLayeredConv1d(n_feat, ff_hidden, kernel_size) if use_conv_ff
+                   else PositionwiseFF(n_feat, ff_hidden))
+        self.norm1 = LayerNorm(n_feat)
+        self.norm2 = LayerNorm(n_feat)
+
+    def forward(self, x, mask=None, attn_impl: str = "xla"):
+        x = x + self.self_attn(self.norm1(x), mask, attn_impl)
+        return x + self.ff(self.norm2(x))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, num_layers: int, n_feat: int, n_head: int, ff_hidden: int,
+                 use_conv_ff: bool = True, kernel_size: int = 3):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(n_feat, n_head, ff_hidden, use_conv_ff, kernel_size) for _ in range(num_layers))
+        self.final_norm = LayerNorm(n_feat)
+
+    def forward(self, x, mask=None, attn_impl: str = "xla"):
+        """x [B, T, D], mask [B, 1, T] True = valid or None -> [B, T, D]."""
+        for layer in self.layers:
+            x = layer(x, mask, attn_impl)
+        return self.final_norm(x)

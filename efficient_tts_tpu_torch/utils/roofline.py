@@ -1,0 +1,97 @@
+"""Least times on an H100 SXM for the work of each ported or still-to-port kernel.
+
+A bound is the larger of the bytes the function must move (each input read
+once, each output written once) over the memory rate and its operations over
+the card's peak for their type. `chip_smoke.py` uses these for its kernel
+rows; run this module to print the bounds of every TPU kernel of the JAX
+package at the shapes of its path:
+
+    python -m efficient_tts_tpu_torch.utils.roofline
+
+Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W power limit.
+"""
+
+from __future__ import annotations
+
+import json
+
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12  # HBM3
+
+# HiFi-GAN V1 MRF stages at B=16, T2=512: (channels, length)
+MRF_STAGES = ((256, 4096), (128, 32768), (64, 65536), (32, 131072))
+V1_KERNEL_SIZES = (3, 7, 11)
+V1_CONVS_PER_BRANCH = 6  # dilations 1/3/5, two convs each
+
+
+def bound_ms(ops: float, nbytes: float, peak: str) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes")."""
+    by_ops, by_bytes = ops / PEAK_OPS[peak] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes")
+
+
+def mrf_stage_work(b: int, t: int, c: int, taps, act_bytes: int, weight_bytes: float,
+                   per_conv_vectors: int = 1) -> tuple[float, float]:
+    """(operations, bytes) of one MRF stage: x read and the result written
+    once in `act_bytes` per value, every conv's [k, C, C] weights once, and
+    `per_conv_vectors` f32 [C] vectors per conv (the bias; int8 adds scales)."""
+    ops = 2.0 * b * t * c * c * sum(taps)
+    nbytes = 2 * b * t * c * act_bytes + sum(k * c * c for k in taps) * weight_bytes
+    return ops, nbytes + len(taps) * c * 4 * per_conv_vectors
+
+
+def flash_work(b: int, h: int, t: int, dk: int, segmented: bool) -> tuple[float, float]:
+    """(operations, bytes) of the flash forward in f32: q k^T and p v, q, k,
+    v read and o written once, and the two int32 segment id arrays."""
+    return 4.0 * b * h * t * t * dk, 4 * b * h * t * dk * 4 + (2 * b * t * 4 if segmented else 0)
+
+
+def flash_backward_work(b: int, h: int, t: int, dk: int, part: str) -> tuple[float, float]:
+    """(operations, bytes) of the library backward's two calls in f32: "dkv"
+    recomputes s and dp and forms dv and dk (4 products), "dq" recomputes s
+    and dp and forms dq (3). Each reads q, k, v, do and the [B, H, T] l, m
+    and di once and writes its gradients once."""
+    n_products, n_out = {"dkv": (4, 2), "dq": (3, 1)}[part]
+    head = b * h * t * dk * 4
+    return 2.0 * n_products * b * h * t * t * dk, (4 + n_out) * head + 3 * b * h * t * 4
+
+
+def v1_taps():
+    return [k for k in V1_KERNEL_SIZES for _ in range(V1_CONVS_PER_BRANCH)]
+
+
+def table(b: int = 16) -> list[dict]:
+    rows = []
+    taps = v1_taps()
+    for c, t in MRF_STAGES:
+        for name, peak, act, wb, vecs in (("K1 mrf_stage bf16", "bf16", 2, 2, 1),
+                                          ("K2 mrf_stage W8A8", "int8", 2, 1, 2),
+                                          ("K3 mrf_stage f32", "tf32", 4, 4, 1),
+                                          ("K3 mrf_stage f32", "fp32", 4, 4, 1)):
+            ops, nbytes = mrf_stage_work(b, t, c, taps, act, wb, vecs)
+            ms, by = bound_ms(ops, nbytes, peak)
+            rows.append({"kernel": name, "shape": [b, t, c], "peak": peak, "ops": ops, "bytes": nbytes,
+                         "bound_ms": ms, "bound_by": by})
+    for t, seg in ((512, False), (128, True)):
+        ops, nbytes = flash_work(b, 4, t, 96, seg)
+        ms, by = bound_ms(ops, nbytes, "tf32")
+        rows.append({"kernel": "K4 flash forward", "shape": [b, 4, t, 96], "segment_ids": seg, "peak": "tf32",
+                     "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
+    for part in ("dkv", "dq"):
+        ops, nbytes = flash_backward_work(b, 4, 512, 96, part)
+        ms, by = bound_ms(ops, nbytes, "tf32")
+        rows.append({"kernel": f"K4 flash backward {part}", "shape": [b, 4, 512, 96], "peak": "tf32",
+                     "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
+    # the rate probe: [M, 128] x [128, 128], 8 products per tile (scripts/probe_int8_pallas.py)
+    m, k, n, repeat = 1 << 20, 128, 128, 8
+    for peak, elem in (("bf16", 2), ("int8", 1)):
+        ops, nbytes = 2.0 * m * k * n * repeat, (m * k + k * n + m * n) * elem
+        ms, by = bound_ms(ops, nbytes, peak)
+        rows.append({"kernel": "K5 matmul rate probe", "shape": [m, k, n], "peak": peak, "ops": ops,
+                     "bytes": nbytes, "bound_ms": ms, "bound_by": by})
+    return rows
+
+
+if __name__ == "__main__":
+    for row in table():
+        print(json.dumps(row))

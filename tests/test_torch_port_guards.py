@@ -13,6 +13,7 @@ import torch
 import efficient_tts_tpu_torch
 from efficient_tts_tpu_torch import compat, init, pipeline
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +65,28 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     wav, wl = pipeline.synthesize(em, vm, text, lengths, device="cpu")
+    assert wav.shape[0] == 1 and wl.shape == (1,)
+
+
+TR_CFG = EftsTransformerConfig(num_symbols=10, n_channels=16, n_heads=2, ff_hidden=32, n_text_encoder_layer=1,
+                               n_mel_encoder_layer=1, n_decoder_layer=1, dropout_rate=0.0, attn_impl="flash")
+
+
+def test_transformer_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    tp = init.init_efts_transformer(0, TR_CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compat.efts_transformer_from_jax(tp, TR_CFG)
+    tm = compat.efts_transformer_from_jax(tp, TR_CFG, device="cpu")
+    vm = compat.hifigan_generator_from_jax(init.init_generator(1, VOC_CFG), VOC_CFG, device="cpu")
+    text, lengths = np.ones((1, 4), np.int32), np.array([4], np.int32)
+    for call in (lambda: pipeline.synthesize(tm, vm, text, lengths),
+                 lambda: pipeline.synthesize_fixed(tm, vm, text, lengths, 32),
+                 lambda: pipeline.predict_lengths(tm, text, lengths)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    wav, wl = pipeline.synthesize(tm, vm, text, lengths, device="cpu")
     assert wav.shape[0] == 1 and wl.shape == (1,)
 
 
