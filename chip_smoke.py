@@ -12,27 +12,45 @@ Phases, each of which raises on failure:
      inputs; the flash attention forward at the EFTS-Transformer's shapes
      ([16, 4, 512, 96] without segment ids, [16, 4, 128, 96] with ragged
      ones) against `flash_attention_reference`, on the same f32 inputs;
+     the flash attention backward (dq, dk, dv through `FlashAttention`:
+     one forward, one dkv and one dq launch) at the training shapes
+     ([64, 4, 512, 96] without and with ragged segment ids, [64, 4, 128,
+     96] with them) against `torch.autograd.grad` through
+     `flash_attention_reference`;
   4. main paths at full width, seeded random weights through the weight
-     bridge, HiFi-GAN V1 after each; the launch counts are set to 0 before
-     each path and read after it:
+     bridge; the launch counts are set to 0 before each path and read after
+     it:
      a. EFTS-CNN with 76 symbols: `synthesize` on a few ragged batches and
-        `synthesize_fixed` at T2=512, bf16; checks shapes, lengths,
-        finiteness, the MRF launch counts, and one wav against the same
-        path with the plain MRF version;
+        `synthesize_fixed` at T2=512, bf16, into HiFi-GAN V1; checks shapes,
+        lengths, finiteness, the MRF launch counts, and one wav against the
+        same path with the plain MRF version;
      b. EFTS-Transformer at `lj_efts_transformer_phnseq.yaml`'s widths
         with attn_impl="flash": `synthesize` on 3 ragged batches at T1=128
         with bucket_multiple=128 (every attention call eligible) and
         `synthesize_fixed` at T2=512, bf16; the same checks, 8 flash
         launches per synthesis, and one wav against the same path with
         the plain attention version;
+     c. EFTS-Transformer training at the yaml's widths with dropout 0.0 and
+        attn_impl="flash", f32, the yaml's batch of 64 at T1=128, T2=512
+        with ragged lengths, the yaml's Adam + WarmupLR: the first step's
+        gradients leaf by leaf against the same model with
+        attn_impl="flash_plain", then 10 steps of `make_train_step` on each,
+        losses and grad_norm step by step; 10 forward, 10 dkv and 10 dq
+        launches per step (4 text-encoder calls at T=128, 2 mel-encoder and
+        4 decoder calls at T=512, all with segment ids);
+     d. the published yaml (dropout 0.1): 3 steps with an explicit
+        generator; finite losses and no flash launch at all;
   5. timing with CUDA events (median and quartiles of 20 runs after
-     warmup): each path's `synthesize_fixed`, its device time by kernel
-     from torch.profiler, and each MRF stage kernel beside its bound, its
-     plain version and the 18 cuDNN convs of the stage. The flash kernel
-     at both shapes, its plain version and `F.scaled_dot_product_attention`
-     are timed by their device time (torch.profiler, 20 calls), since one
-     call's CUDA-event time there is mostly the host's launch time, which
-     is printed beside it; bounds from `efficient_tts_tpu_torch/utils/
+     warmup): each path's `synthesize_fixed`, the training step with the
+     kernels, with the plain attention and with dropout 0.1, their device
+     time by kernel and idle share from torch.profiler, and each MRF stage
+     kernel beside its bound, its plain version and the 18 cuDNN convs of
+     the stage. The flash kernels at
+     their shapes, their plain versions and `F.scaled_dot_product_attention`
+     (forward, and its backward for the backward kernels) are timed by
+     their device time (torch.profiler, 20 calls), since one call's
+     CUDA-event time there is mostly the host's launch time, which is
+     printed beside it; bounds from `efficient_tts_tpu_torch/utils/
      roofline.py`;
   6. a `{"kernels": [...]}` line, then the card line, then the last line
      `{"ok": true, "device": {...}}`.
@@ -40,6 +58,7 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -66,6 +85,25 @@ FLASH_TOL = {"max_abs_over_range": 1e-2, "rel_rms": 2e-3}
 # TF32 rounding of 8 attention layers reaches the mel, which the bf16
 # vocoder then rounds; the bound is the MRF one
 TR_WAV_TOL = WAV_TOL
+# Backward kernels vs plain gradients: q, k, v, do, p and ds rounded to
+# TF32; ds = (dp - di) p cancels, so the error is a few times the forward's
+# (predicted near 1e-3 relative RMS, PERF.md).
+BWD_TOL = {"max_abs_over_range": 2e-2, "rel_rms": 5e-3}
+# Training, kernel path vs flash_plain path from the same params and batch:
+# the 10 attention layers' TF32 rounding reaches every gradient. A leaf
+# passes when its error norm is within 2e-2 of its gradient's norm plus
+# 1e-5 of the whole gradient's norm (the key biases' true gradient is 0:
+# the softmax is shift-invariant, so they hold only rounding).
+TRAIN_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 1e-3, "leaf_rel": 2e-2, "leaf_abs_of_global": 1e-5}
+TRAIN_B, TRAIN_T2, N_TRAIN_STEPS = 64, 512, 10
+# lj_efts_transformer_phnseq.yaml's optimizer, scheduler and grad_norm blocks
+YAML_OPTIMIZER = {
+    "optimizer_type": "Adam",
+    "optimizer_params": {"lr": 1.0e-3, "betas": [0.9, 0.99], "eps": 1.0e-9, "weight_decay": 1.0e-5, "amsgrad": True},
+    "grad_norm": 1.0,
+    "scheduler_type": "WarmupLR",
+    "scheduler_params": {"warmup_steps": 4000},
+}
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -169,21 +207,28 @@ def stage_bound_ms(c, t, order):
     return (*bound_ms(ops, nbytes, "bf16"), ops)
 
 
-def flash_inputs(torch, t, seed, dev, segmented):
-    """Seeded N(0, 1) q, k, v as the [B, H, T, 96] views of [B, T, H, 96]
-    tensors that the q/k/v linears give; ragged segment ids (valid 1, pad
-    0) with one row all valid, as the text encoder's key-padding mask gives."""
+def flash_inputs(torch, t, seed, dev, segmented, b=B, n=3):
+    """Seeded N(0, 1) q, k, v (and with n=4 an upstream gradient do) as the
+    [B, H, T, 96] views of [B, T, H, 96] tensors that the q/k/v linears
+    give; ragged segment ids (valid 1, pad 0) with one row all valid, as the
+    text encoder's key-padding mask gives."""
     from efficient_tts_tpu_torch.ops.flash_attention import SegmentIds
 
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn((B, t, 4, 96), generator=g).to(dev).transpose(1, 2) for _ in range(3))
+    xs = [torch.randn((b, t, 4, 96), generator=g).to(dev).transpose(1, 2) for _ in range(n)]
     seg = None
     if segmented:
-        lengths = torch.randint(t // 2, t + 1, (B,), generator=g)
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
         lengths[0] = t
         ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
         seg = SegmentIds(ids, ids)
-    return q, k, v, seg
+    return (*xs, seg)
+
+
+def flash_grads(torch, fn, q, k, v, do, seg, scale):
+    """dq, dk, dv of fn(q, k, v, seg, scale) for the upstream gradient do."""
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    return torch.autograd.grad(fn(*xs, seg, scale), xs, do)
 
 
 def flash_bound_ms(q, seg):
@@ -194,6 +239,66 @@ def flash_bound_ms(q, seg):
     b, h, t, dk = q.shape
     ops, nbytes = flash_work(b, h, t, dk, seg is not None)
     return (*bound_ms(ops, nbytes, "tf32"), ops)
+
+
+def flash_bwd_bound_ms(q, seg, part):
+    """q, k, v, do, m, l, di (and the id arrays) read once, the part's
+    gradients written once, against its products at the TF32 peak."""
+    from efficient_tts_tpu_torch.utils.roofline import bound_ms, flash_backward_work
+
+    b, h, t, dk = q.shape
+    ops, nbytes = flash_backward_work(b, h, t, dk, part, seg is not None)
+    return (*bound_ms(ops, nbytes, "tf32"), ops)
+
+
+def plain_bwd_part(torch, fa, part, q, k, v, o, m, l, do, seg, scale):
+    """The plain version of one backward kernel from the same residuals:
+    (dk, dv) for "dkv", dq for "dq" (the arithmetic of
+    `flash_attention_bwd_reference`, cut to what that kernel writes)."""
+    p = torch.exp(fa._logits(q, k, seg, scale) - m[..., None]) / l[..., None]
+    dp = torch.einsum("bhqc,bhkc->bhqk", do, v)
+    ds = (dp - torch.sum(o * do, dim=-1)[..., None]) * p * scale
+    if part == "dq":
+        return torch.einsum("bhqk,bhkc->bhqc", ds, k)
+    return torch.einsum("bhqk,bhqc->bhkc", ds, q), torch.einsum("bhqk,bhqc->bhkc", p, do)
+
+
+def profile_summary(prof, ms, names):
+    """Busy time, idle share against the CUDA-event time `ms`, the time and
+    launches of the kernels whose names hold each of `names`, and the top 10."""
+    busy = sum(v[0] for v in prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
+    out = {"device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / ms),
+           "kernel_launches": sum(v[1] for v in prof.values()),
+           "top": [[k[:90], v[0], v[1]] for k, v in top]}
+    for n in names:
+        out[n + "_ms"] = sum(v[0] for k, v in prof.items() if n in k)
+        out[n + "_launches"] = sum(v[1] for k, v in prof.items() if n in k)
+    return out
+
+
+def flash_by_segments(launches, kernel="fwd"):
+    """{segmented: launches} of one flash kernel, summed over lengths."""
+    out = {}
+    for (name, _, seg), n in launches.items():
+        if name == kernel:
+            out[seg] = out.get(seg, 0) + n
+    return out
+
+
+def train_batch(rng, num_symbols, odim):
+    """The yaml's batch of 64 at T1=128, T2=512: ragged text and mel lengths
+    (one utterance of each at full length), seeded ids and N(0, 1) mel
+    targets, zero past each length."""
+    tl = rng.integers(T1_TR // 2, T1_TR + 1, TRAIN_B).astype(np.int32)
+    ml = rng.integers(TRAIN_T2 // 2, TRAIN_T2 + 1, TRAIN_B).astype(np.int32)
+    tl[0], ml[0] = T1_TR, TRAIN_T2
+    text = np.zeros((TRAIN_B, T1_TR), np.int32)
+    for i, n in enumerate(tl):
+        text[i, :n] = rng.integers(1, num_symbols, n)
+    mel = rng.standard_normal((TRAIN_B, TRAIN_T2, odim)).astype(np.float32)
+    mel *= np.arange(TRAIN_T2)[None, :, None] < ml[:, None, None]
+    return {"text": text, "text_lengths": tl, "mel": mel, "mel_lengths": ml}
 
 
 def ragged_batches(rng, t1, num_symbols, n=3):
@@ -300,6 +405,32 @@ def main() -> int:
             raise AssertionError(f"flash kernel disagrees with its plain version at {tuple(q.shape)}: {stats}")
         flash_rows[segmented] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
         del q, k, v, seg, out
+    # the backward kernels at the training shapes: the T2 calls' length without
+    # and with segment ids (training masks every call), the text encoder's
+    # with ragged ones
+    bwd_shapes = ((TRAIN_T2, False), (TRAIN_T2, True), (T1_TR, True))
+    bwd_rows = {}
+    for t, segmented in bwd_shapes:
+        q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
+        fa.reset_launches()
+        got = flash_grads(torch, fa.flash_attention, q, k, v, do, seg, 96**-0.5)
+        torch.cuda.synchronize()
+        if fa.launches != {(kernel, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}:
+            raise AssertionError(f"one backward launched {fa.launches}")
+        ref = flash_grads(torch, fa.flash_attention_reference, q, k, v, do, seg, 96**-0.5)
+        stats = {name: err_stats(g_, r_) for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref)}
+        log({"phase": "kernel_vs_plain", "kernel": "flash_attention_backward", "shape": list(q.shape),
+             "segment_ids": segmented, **stats, "tolerance": BWD_TOL})
+        for name, st in stats.items():
+            if not within(st, BWD_TOL):
+                raise AssertionError(f"flash backward {name} disagrees with the plain gradient at "
+                                     f"{tuple(q.shape)}: {st}")
+        for kernel, names in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+            bwd_rows[kernel, t, segmented] = {
+                "max_abs_err": max(stats[n]["max_abs_err"] for n in names),
+                "rel_rms": max(stats[n]["rel_rms"] for n in names),
+                "max_abs_over_range": max(stats[n]["max_abs_err"] / stats[n]["range"] for n in names)}
+        del q, k, v, do, seg, got, ref
 
     # 4a. EFTS-CNN main path at full width
     efts = compat.efts_cnn_from_jax(init.init_efts(0, efts_cfg), efts_cfg, device="cuda")
@@ -352,7 +483,9 @@ def main() -> int:
     wav_fixed, wl_fixed, mel_fixed = pipeline.synthesize_fixed(
         tr, voc, tr_batches[0][0], tr_batches[0][1], T2, compute_dtype=bf16)
     torch.cuda.synchronize()
-    tr_launches, tr_flash = dict(mrf.launches), dict(fa.launches)
+    tr_launches, tr_flash = dict(mrf.launches), flash_by_segments(fa.launches)
+    if any(kernel != "fwd" for kernel, _, _ in fa.launches):
+        raise AssertionError(f"synthesis launched a backward kernel: {fa.launches}")
     n_tr = len(tr_batches) + 1
     expected = {c: 18 * n_tr for c, _ in stages}
     # per synthesis: 4 text-encoder layers (segment ids) and 4 decoder layers (none)
@@ -382,6 +515,103 @@ def main() -> int:
         raise AssertionError(f"synthesize_fixed with the flash kernel disagrees with the plain path: {stats}")
     del wav_fixed, wav_plain, mel_fixed, mel_plain, tr_results
 
+    # 4c. EFTS-Transformer training at the yaml's widths, dropout off: the kernel
+    # path against the same model with the plain attention
+    from efficient_tts_tpu_torch.train.efts_train_step import batch_to_device, make_train_step
+    from efficient_tts_tpu_torch.train.optim import optimizer_from_dict
+    from efficient_tts_tpu_torch.train.state import create_state, named_params
+    from efficient_tts_tpu_torch.utils.precision import full_f32
+
+    train_cfg = EftsTransformerConfig(num_symbols=76, dropout_rate=0.0, sigma=0.01, attn_impl="flash")
+    plain_cfg = dataclasses.replace(train_cfg, attn_impl="flash_plain")
+    train_params = init.init_efts_transformer(3, train_cfg)
+    batch = batch_to_device(train_batch(np.random.default_rng(2), train_cfg.num_symbols, train_cfg.odim), dev)
+
+    def trainable(cfg):
+        return compat.efts_transformer_from_jax(train_params, cfg, device="cuda", trainable=True)
+
+    def first_grads(model):
+        with full_f32():
+            out = model(batch["text"], batch["text_lengths"], batch["mel"], batch["mel_lengths"])
+            params = named_params(model)
+            grads = torch.autograd.grad(out["loss"], list(params.values()))
+        return dict(zip(params, grads)), float(out["loss"].detach())
+
+    def run_steps(model, cfg, n, gen=None):
+        """n steps of `make_train_step` from a fresh optimizer state; the
+        metrics of each step and the launch counts after each."""
+        tx = optimizer_from_dict(YAML_OPTIMIZER)
+        state = create_state(model, tx)
+        step = make_train_step(cfg, tx)
+        metrics, counts = [], []
+        for _ in range(n):
+            state, m = step(state, batch, gen)
+            metrics.append(m)
+            counts.append(dict(fa.launches))
+        torch.cuda.synchronize()
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"training gave non-finite metrics: {metrics}")
+        return state, step, metrics, counts
+
+    model_k, model_p = trainable(train_cfg), trainable(plain_cfg)
+    (g_k, loss_k), (g_p, loss_p) = first_grads(model_k), first_grads(model_p)
+    g_norm = math.sqrt(sum(float(g.square().sum()) for g in g_p.values()))
+    leaf_fail, leaf_worst = [], (0.0, "")
+    for name, gp in g_p.items():
+        err, ref = float((g_k[name] - gp).norm()), float(gp.norm())
+        if err > TRAIN_TOL["leaf_rel"] * ref + TRAIN_TOL["leaf_abs_of_global"] * g_norm:
+            leaf_fail.append((name, err, ref))
+        if ref > 1e-3 * g_norm:
+            leaf_worst = max(leaf_worst, (err / ref, name))
+    log({"phase": "train_first_step_gradients", "leaves": len(g_p), "loss": loss_k, "loss_plain": loss_p,
+         "grad_norm": g_norm, "worst_leaf_rel_err": leaf_worst[0], "worst_leaf": leaf_worst[1],
+         "failing_leaves": leaf_fail[:5], "tolerance": TRAIN_TOL})
+    if leaf_fail or abs(loss_k - loss_p) > TRAIN_TOL["loss_rel"] * abs(loss_p):
+        raise AssertionError(f"first-step gradients through the kernels disagree with the plain path: {leaf_fail[:5]}")
+    del g_k, g_p
+
+    mrf.reset_launches()
+    fa.reset_launches()
+    state_k, step_k, metrics_k, counts = run_steps(model_k, train_cfg, N_TRAIN_STEPS)
+    train_launches = dict(fa.launches)
+    n_t1, n_t2 = train_cfg.n_text_encoder_layer, train_cfg.n_mel_encoder_layer + train_cfg.n_decoder_layer
+    per_step = {(kern, t, True): n for kern in ("fwd", "dkv", "dq") for t, n in ((T1_TR, n_t1), (TRAIN_T2, n_t2))}
+    log({"phase": "main_path", "model": "efts_transformer_training", "steps": N_TRAIN_STEPS,
+         "flash_launches": {"/".join(map(str, k)): n for k, n in train_launches.items()},
+         "expected_per_step": {"/".join(map(str, k)): n for k, n in per_step.items()},
+         "mrf_launches": dict(mrf.launches), "metrics": metrics_k})
+    for i, c in enumerate(counts):
+        if c != {k: n * (i + 1) for k, n in per_step.items()}:
+            raise AssertionError(f"after training step {i + 1} the flash launches are {c}, expected "
+                                 f"{per_step} per step")
+    if mrf.launches:
+        raise AssertionError(f"training launched the MRF kernel: {mrf.launches}")
+
+    fa.reset_launches()
+    state_p, step_p, metrics_p, _ = run_steps(model_p, plain_cfg, N_TRAIN_STEPS)
+    if fa.launches:
+        raise AssertionError(f"the plain attention path launched {fa.launches}")
+    diffs = [{"loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+              "grad_norm_rel": abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]}
+             for a, b in zip(metrics_k, metrics_p)]
+    log({"phase": "main_path_vs_plain_attention", "model": "efts_transformer_training",
+         "losses": [m["loss"] for m in metrics_k], "losses_plain": [m["loss"] for m in metrics_p],
+         "max_loss_rel": max(d["loss_rel"] for d in diffs),
+         "max_grad_norm_rel": max(d["grad_norm_rel"] for d in diffs), "tolerance": TRAIN_TOL})
+    if any(d["loss_rel"] > TRAIN_TOL["loss_rel"] or d["grad_norm_rel"] > TRAIN_TOL["grad_norm_rel"] for d in diffs):
+        raise AssertionError(f"training through the kernels disagrees with the plain path: {diffs}")
+
+    # 4d. the published yaml, dropout 0.1: every attention call takes the XLA branch
+    drop_cfg = dataclasses.replace(train_cfg, dropout_rate=0.1)
+    fa.reset_launches()
+    drop_gen = torch.Generator().manual_seed(0)
+    state_d, step_d, metrics_d, _ = run_steps(trainable(drop_cfg), drop_cfg, 3, drop_gen)
+    log({"phase": "main_path", "model": "efts_transformer_training_dropout", "steps": 3, "metrics": metrics_d,
+         "flash_launches": {"/".join(map(str, k)): n for k, n in fa.launches.items()}})
+    if fa.launches:
+        raise AssertionError(f"training with dropout launched flash kernels: {fa.launches}")
+
     # 5. timing
     def time_path(name, model, text, lengths, plain_model, plain_kw, extra):
         """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
@@ -396,22 +626,26 @@ def main() -> int:
              "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"]})
         prof = device_profile(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
                                                                        compute_dtype=bf16))
-        if prof:
-            busy = sum(v[0] for v in prof.values())
-            top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
-            log({"phase": "profile", "what": "synthesize_fixed", "model": name, "device_busy_ms": busy,
-                 "idle_share": max(0.0, 1.0 - busy / ms),
-                 "mrf_kernel_ms": sum(v[0] for k, v in prof.items() if "mrf_conv_kernel" in k),
-                 "flash_kernel_ms": sum(v[0] for k, v in prof.items() if "flash_fwd_kernel" in k),
-                 "flash_kernel_launches": sum(v[1] for k, v in prof.items() if "flash_fwd_kernel" in k),
-                 "kernel_launches": sum(v[1] for v in prof.values()),
-                 "top": [[k[:90], v[0], v[1]] for k, v in top]})
-        else:
-            log({"phase": "profile", "what": "synthesize_fixed", "model": name, "device_busy_ms": "not measured"})
+        summary = (profile_summary(prof, ms, ("mrf_conv_kernel", "flash_fwd_kernel")) if prof
+                   else {"device_busy_ms": "not measured"})
+        log({"phase": "profile", "what": "synthesize_fixed", "model": name, **summary})
 
     time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms")
     time_path("efts_transformer", tr, *tr_batches[0], tr_plain, {}, "plain_attention_ms")
     del efts, tr, tr_plain
+
+    # the training step after warmup: the kernel path, the plain attention and
+    # the published yaml's dropout (each state keeps training as it is timed)
+    flash_names = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    for name, (state, step, gen) in {"flash": (state_k, step_k, None), "flash_plain": (state_p, step_p, None),
+                                     "dropout_0.1": (state_d, step_d, drop_gen)}.items():
+        t_step = time_ms(torch, lambda: step(state, batch, gen))
+        prof = device_profile(torch, lambda: step(state, batch, gen))
+        summary = profile_summary(prof, t_step["median"], flash_names) if prof else {"device_busy_ms": "not measured"}
+        log({"phase": "timing", "what": "train_step", "attention": name, "B": TRAIN_B, "T1": T1_TR,
+             "T2": TRAIN_T2, "dtype": "f32", "ms": t_step["median"], "ms_p25": t_step["p25"],
+             "ms_p75": t_step["p75"], "n": t_step["n"], "steps_done": state["step"], **summary})
+    del state_k, state_p, state_d, step_k, step_p, step_d, model_k, model_p
 
     kernels = []
     for c, t in stages:
@@ -465,7 +699,10 @@ def main() -> int:
             "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
             "replaces": "efficient_tts_tpu/nn/attention.py:56",
             "pallas_call": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (jax 0.9.0)",
-            "launches": tr_flash.get(segmented, 0), "launches_by_path": {"efts_transformer": tr_flash.get(segmented, 0)},
+            "launches": tr_flash.get(segmented, 0),
+            "launches_by_path": {"efts_transformer": tr_flash.get(segmented, 0),
+                                 # training masks every call: the same lengths, all with segment ids
+                                 "efts_transformer_training": train_launches.get(("fwd", t, True), 0)},
             **flash_rows[segmented], "tolerance": FLASH_TOL, "precision": "tf32 operands, f32 softmax and sums",
             "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": ms["library"], "timed_by": "device" if dev_ms["kernel"] is not None else "event",
@@ -478,6 +715,59 @@ def main() -> int:
              "kernel_host_us": k_host_us, "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
              **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
         del q, k, v, seg, mask, calls
+
+    # the backward kernels at the training path's shapes (every call masked):
+    # device time of each kernel, of its plain version from the same
+    # residuals, and of SDPA's backward (dq, dk and dv in one call)
+    pallas_lines = {"dkv": 1121, "dq": 1456}
+    for t, segmented in ((TRAIN_T2, True), (T1_TR, True)):
+        q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
+        scale = 96**-0.5
+        o, m, l = fa._forward_kernel(q, k, v, seg, scale, residuals=True)
+        mask = seg.q[:, None, :, None] == seg.kv[:, None, None, :]
+        qs, ks_, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask, scale=scale)
+
+        def library_bwd():
+            return torch.autograd.grad(lib_out, (qs, ks_, vs), do, retain_graph=True)
+
+        def kernel_bwd():
+            return fa._backward_kernels(q, k, v, o, m, l, do, seg, scale)
+
+        prof = device_profile(torch, kernel_bwd, n=N_TIMED)
+        call_ms = time_ms(torch, kernel_bwd)
+        lib_dev = device_ms(torch, library_bwd)
+        lib_ms = lib_dev if lib_dev is not None else time_ms(torch, library_bwd)["median"]
+        for part, kname in (("dkv", "flash_bwd_dkv_kernel"), ("dq", "flash_bwd_dq_kernel")):
+            k_dev = sum(v_[0] for key, v_ in prof.items() if kname in key) if prof else None
+
+            def plain(part=part):
+                return plain_bwd_part(torch, fa, part, q, k, v, o, m, l, do, seg, scale)
+
+            p_dev = device_ms(torch, plain)
+            p_ms = p_dev if p_dev is not None else time_ms(torch, plain)["median"]
+            bound, bound_by, flops = flash_bwd_bound_ms(q, seg, part)
+            k_ms = k_dev if k_dev else call_ms["median"]
+            row = {
+                "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR else f"t{t}"), "route": "cuda",
+                "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "efficient_tts_tpu/nn/attention.py:56",
+                "pallas_call": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{pallas_lines[part]} (jax 0.9.0)",
+                "launches": train_launches.get((part, t, segmented), 0),
+                "launches_by_path": {"efts_transformer_training": train_launches.get((part, t, segmented), 0)},
+                **bwd_rows[part, t, segmented], "tolerance": BWD_TOL,
+                "precision": "tf32 operands, f32 softmax, di and sums",
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+                "library_call": "F.scaled_dot_product_attention backward, f32, boolean mask (dq, dk, dv together)",
+                "timed_by": "device" if k_dev else "event (di and both kernels)",
+            }
+            kernels.append(row)
+            log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "segment_ids": segmented,
+                 "tflops": flops / (k_ms * 1e9), "bound_share": bound / k_ms,
+                 "backward_call_ms": call_ms["median"], "backward_call_ms_p25": call_ms["p25"],
+                 "backward_call_ms_p75": call_ms["p75"], "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
+                 **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
+        del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, prof
 
     # 6. result
     log({"kernels": kernels})

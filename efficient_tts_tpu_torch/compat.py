@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameter trees -> the port's modules.
+"""Weight bridge between the JAX package's parameter trees and the port's modules.
 
 Takes the nested dicts of `efficient_tts_tpu` (`efts.init`, the
 EFTS-Transformer's `init`, `hg.init_generator`, or their checkpoints)
@@ -7,7 +7,11 @@ plain {w, b}. Weight norm is folded
 once here (eps 0). Layouts: linear [in, out] -> [out, in]; conv WIO
 [k, in, out] -> [out, in, k]; transposed conv WIO -> [in, out, k]; MRF
 stage convs -> the kernel's [k, out, in], each stage's 18 laid out once.
-Parameters that only the training forward uses are ignored.
+An inference model ignores the parameters that only the training forward
+uses; `efts_transformer_from_jax(..., trainable=True)` loads them too and
+makes every parameter trainable, and `efts_transformer_to_jax` maps a
+model's parameters (or their gradients) back onto the JAX tree's keys and
+layouts, so the two can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -73,31 +77,104 @@ def efts_cnn_from_jax(params: dict, cfg: EftsCNNConfig, device="cuda") -> EftsCN
     return model.to(dev).eval()
 
 
-def _load_transformer_block(block, p):
-    for layer, lp in zip(block.layers, p["layers"], strict=True):
+# Transformer parameters as (path in the JAX tree, port parameter, layout),
+# read one way by the loader and the other way by `efts_transformer_to_jax`.
+# Layouts: "linear" [in, out] <-> [out, in], "conv" [k, in, out] <-> [out,
+# in, k] (both self-inverse transposes), "same" as it is.
+_TO_PORT = {"linear": lambda a: a.T, "conv": lambda a: np.transpose(a, (2, 1, 0)), "same": lambda a: a}
+
+
+def _entries_linear(path, mod, layout="linear"):
+    yield path + ("w",), mod.weight, layout
+    yield path + ("b",), mod.bias, "same"
+
+
+def _entries_norm(path, mod):
+    yield path + ("scale",), mod.scale, "same"
+    yield path + ("bias",), mod.bias, "same"
+
+
+def _entries_block(path, block):
+    for i, layer in enumerate(block.layers):
+        lp = path + ("layers", i)
         for name in ("q", "k", "v", "out"):
-            _load_linear(getattr(layer.self_attn, name), lp["self_attn"][name])
-        for name, fp in lp["ff"].items():  # conv1/conv2 or w1/w2
-            (_load_conv if name.startswith("conv") else _load_linear)(getattr(layer.ff, name), fp)
-        _load_norm(layer.norm1, lp["norm1"])
-        _load_norm(layer.norm2, lp["norm2"])
-    _load_norm(block.final_norm, p["final_norm"])
+            yield from _entries_linear(lp + ("self_attn", name), getattr(layer.self_attn, name))
+        for name, mod in layer.ff.named_children():  # conv1/conv2 or w1/w2
+            yield from _entries_linear(lp + ("ff", name), mod, "conv" if name.startswith("conv") else "linear")
+        yield from _entries_norm(lp + ("norm1",), layer.norm1)
+        yield from _entries_norm(lp + ("norm2",), layer.norm2)
+    yield from _entries_norm(path + ("final_norm",), block.final_norm)
+
+
+def _entries_transformer(model: EftsTransformer):
+    yield ("text_embedding", "table"), model.text_embedding, "same"
+    yield ("pe_scale",), model.pe_scale, "same"
+    yield from _entries_block(("text_encoder",), model.text_encoder)
+    yield from _entries_linear(("text_value",), model.text_value)
+    if model.training_modules:
+        yield from _entries_linear(("text_key",), model.text_key)
+        yield from _entries_linear(("mel_prenet",), model.mel_prenet)
+        yield from _entries_block(("mel_encoder",), model.mel_encoder)
+    yield from _entries_block(("decoder",), model.decoder)
+    yield from _entries_linear(("mel_out",), model.mel_out)
+    dp = model.duration_predictor
+    for i, (conv, norm) in enumerate(zip(dp.convs, dp.norms)):
+        yield from _entries_linear(("duration_predictor", "convs", i), conv, "conv")
+        yield from _entries_norm(("duration_predictor", "norms", i), norm)
+    yield from _entries_linear(("duration_predictor", "out"), dp.out)
+
+
+def _load_entries(entries, tree):
+    for path, param, layout in entries:
+        value = tree
+        for key in path:
+            value = value[key]
+        _set(param, _TO_PORT[layout](np.asarray(value, np.float32)))
+
+
+def _load_transformer_block(block, p):
+    _load_entries(_entries_block((), block), p)
+
+
+def _put(tree, path, value):
+    """Set tree[path] = value, creating dicts and lists (int keys, in order)."""
+    for key, nxt in zip(path[:-1], path[1:]):
+        child = [] if isinstance(nxt, int) else {}
+        if isinstance(tree, list):
+            if key == len(tree):
+                tree.append(child)
+            tree = tree[key]
+        else:
+            tree = tree.setdefault(key, child)
+    if isinstance(tree, list):
+        tree.append(value)
+    else:
+        tree[path[-1]] = value
 
 
 @torch.no_grad()
-def efts_transformer_from_jax(params: dict, cfg: EftsTransformerConfig, device="cuda") -> EftsTransformer:
-    """The text key, mel prenet and mel encoder (training only) are ignored."""
+def efts_transformer_from_jax(params: dict, cfg: EftsTransformerConfig, device="cuda",
+                              trainable: bool = False) -> EftsTransformer:
+    """An inference model ignores the text key, mel prenet and mel encoder
+    (training only); `trainable=True` loads them and makes every parameter
+    require a gradient."""
     dev = resolve_device(device)
-    p = fold_weight_norm(params)
-    model = EftsTransformer(cfg)
-    _set(model.text_embedding, p["text_embedding"]["table"])
-    _set(model.pe_scale, p["pe_scale"])
-    _load_transformer_block(model.text_encoder, p["text_encoder"])
-    _load_transformer_block(model.decoder, p["decoder"])
-    _load_linear(model.text_value, p["text_value"])
-    _load_linear(model.mel_out, p["mel_out"])
-    _load_duration_predictor(model.duration_predictor, p["duration_predictor"])
-    return model.to(dev).eval()
+    model = EftsTransformer(cfg, training_modules=trainable)
+    _load_entries(_entries_transformer(model), fold_weight_norm(params))
+    model.requires_grad_(trainable)
+    return model.to(dev).train(trainable)
+
+
+@torch.no_grad()
+def efts_transformer_to_jax(model: EftsTransformer, grads: bool = False) -> dict:
+    """The model's parameters (or, with `grads`, their `.grad`, zeros where
+    there is none) as a numpy tree with the JAX package's keys and layouts."""
+    tree: dict = {}
+    for path, param, layout in _entries_transformer(model):
+        t = param.grad if grads else param
+        value = np.zeros(tuple(param.shape), np.float32) if t is None else t.detach().float().cpu().numpy()
+        _put(tree, path, np.array(_TO_PORT[layout](value), order="C"))
+    return tree
 
 
 @torch.no_grad()

@@ -63,6 +63,8 @@ def as_dtype(dtype) -> torch.dtype | None:
 
 
 class EftsCNN(nn.Module):
+    TRAINS = False  # its training forward (trainable weight norm) is not ported yet
+
     def __init__(self, cfg: EftsCNNConfig):
         super().__init__()
         self.cfg = cfg

@@ -1,8 +1,10 @@
-"""FastSpeech-style duration predictor, inference path.
+"""FastSpeech-style duration predictor.
 
-Counterpart of `efficient_tts_tpu/nn/duration_predictor.py:_backbone` and
-`duration_predictor_infer`: n_layers x (conv k3 -> ReLU -> LayerNorm) ->
-linear -> 1, then clamp(exp(d) - offset, 0) with pads zeroed.
+Counterpart of `efficient_tts_tpu/nn/duration_predictor.py`: `_backbone`,
+`duration_predictor` (training) and `duration_predictor_infer`. n_layers x
+(conv k3 -> ReLU -> LayerNorm -> dropout) -> linear -> 1. Training returns
+log-domain durations with pads set to 0; inference clamp(exp(d) - offset,
+0) with pads zeroed.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from efficient_tts_tpu_torch.nn.layers import Conv1d, LayerNorm, Linear
+from efficient_tts_tpu_torch.nn.layers import Conv1d, LayerNorm, Linear, dropout, split_generator
 
 
 class DurationPredictor(nn.Module):
@@ -20,11 +22,21 @@ class DurationPredictor(nn.Module):
         self.norms = nn.ModuleList(LayerNorm(n_chans) for _ in range(n_layers))
         self.out = Linear(n_chans, 1)
 
-    def backbone(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, T, C] -> log-domain durations [B, T]."""
-        for conv, norm in zip(self.convs, self.norms):
-            x = norm(torch.relu(conv(x)))
+    def backbone(self, x: torch.Tensor, dropout_rate: float = 0.0, gen=None,
+                 deterministic: bool = True) -> torch.Tensor:
+        """[B, T, C] -> log-domain durations [B, T]; one dropout per layer."""
+        train = not deterministic and dropout_rate > 0
+        gens = split_generator(gen, len(self.convs)) if train else [None] * len(self.convs)
+        for conv, norm, g in zip(self.convs, self.norms, gens):
+            x = dropout(norm(torch.relu(conv(x))), dropout_rate, g, deterministic)
         return self.out(x)[..., 0]
+
+    def forward(self, x, pad_mask=None, dropout_rate: float = 0.0, gen=None, deterministic: bool = True):
+        """Training: log-domain durations [B, T], pads (pad_mask True) -> 0."""
+        d = self.backbone(x, dropout_rate, gen, deterministic)
+        if pad_mask is not None:
+            d = torch.where(pad_mask, torch.zeros((), dtype=d.dtype, device=d.device), d)
+        return d
 
     def infer(self, x, pad_mask=None, offset: float = 1.0):
         """Linear-domain durations clamp(exp(d) - offset, 0), unrounded; pads -> 0."""

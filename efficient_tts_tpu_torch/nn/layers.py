@@ -6,6 +6,15 @@ conv); `compat.py` converts the JAX package's [in, out] / WIO layouts.
 Rounding follows the JAX functions: a layer computes its product in the
 activation dtype (f32 accumulation for bf16), rounds, then adds the bias
 cast to that dtype.
+
+Parameters are built frozen (`requires_grad=False`); the weight bridge
+makes a model trainable on request (`compat.py`, `trainable=True`).
+Dropout takes an explicit generator, as JAX's takes a key: a CPU
+`torch.Generator` is the host-side key, `split_generator` its
+`jax.random.split`, and each dropout call seeds a generator on the
+activation's device from one draw of it, so no mask crosses the bus and no
+draw waits for the device. The two frameworks' streams differ, so the
+masks do too.
 """
 
 from __future__ import annotations
@@ -18,6 +27,31 @@ from torch import nn
 
 def frozen_param(shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+
+def _seeds(gen: torch.Generator, n: int) -> list[int]:
+    if gen.device.type != "cpu":
+        raise ValueError("dropout keys are CPU generators (host-side, like a JAX key)")
+    return torch.randint(0, 2**62, (n,), generator=gen).tolist()
+
+
+def split_generator(gen: torch.Generator, n: int) -> list[torch.Generator]:
+    """n independent CPU generators seeded from draws of `gen`."""
+    return [torch.Generator().manual_seed(s) for s in _seeds(gen, n)]
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, deterministic: bool) -> torch.Tensor:
+    """Keep each element with probability 1 - rate and scale it by 1 / (1 -
+    rate), else 0 (`efficient_tts_tpu/nn/layers.py:dropout`). The mask is
+    drawn on x's device from a generator seeded by one draw of `gen`."""
+    if deterministic or rate <= 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout needs a generator when it is not deterministic")
+    keep = 1.0 - rate
+    dev_gen = torch.Generator(device=x.device).manual_seed(_seeds(gen, 1)[0])
+    mask = torch.rand(x.shape, generator=dev_gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

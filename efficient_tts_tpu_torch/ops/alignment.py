@@ -1,9 +1,18 @@
-"""IMV alignment ops of the inference path, all float32.
+"""IMV alignment ops, all float32.
 
 Counterpart of `efficient_tts_tpu/ops/alignment.py`: `masked_softmax`,
-`alignment_from_positions` and `boundary_truncation_correction`. Masked
-entries are filled with -1e30 (finite), so a fully masked row gives zeros
-rather than NaN.
+`alignment_from_positions` and `boundary_truncation_correction` (inference
+and training), and the training-only chain `scaled_dot_attention`,
+`index_vector`, `imv_from_alpha` and `aligned_positions`. Masked entries
+are filled with -1e30 (finite), so a fully masked row gives zeros rather
+than NaN.
+
+The JAX matvecs run at Precision.HIGHEST, so on the card these ops run
+with TF32 off (the train step's `utils/precision.py:full_f32`). Gradients
+at ties follow JAX: `torch.maximum` splits the gradient half and half
+where its arguments are equal, as `jnp.maximum` does (relu and clamp give
+it to one side), and `amax` spreads it evenly over tied maxima, as
+`jnp.max` does; a monotone imv that ends in a plateau has such ties.
 """
 
 from __future__ import annotations
@@ -22,6 +31,42 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.
     ex = torch.exp(scores - m) * mask
     denom = ex.sum(dim=dim, keepdim=True)
     return ex / torch.clamp(denom, min=1e-30)
+
+
+def scaled_dot_attention(query: torch.Tensor, key: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """Single-head soft alignment: query [B, T2, D] (mel), key [B, T1, D]
+    (text), key_mask [B, T1] -> alpha [B, T1, T2], softmax over the text axis."""
+    scores = torch.einsum("btd,bsd->bts", query.float(), key.float()) / math.sqrt(query.shape[-1])
+    return masked_softmax(scores, key_mask[:, None, :], dim=-1).transpose(1, 2)
+
+
+def index_vector(mask: torch.Tensor) -> torch.Tensor:
+    """[B, T] mask -> masked position indices [B, T] f32."""
+    return torch.arange(mask.shape[-1], dtype=torch.float32, device=mask.device)[None, :] * mask.float()
+
+
+def imv_from_alpha(alpha: torch.Tensor, p: torch.Tensor, mel_mask: torch.Tensor,
+                   text_lengths: torch.Tensor) -> torch.Tensor:
+    """Monotonic index mapping vector [B, T2]: pi = alpha^T p, made monotone
+    by max(diff, 0) and a cumsum, rescaled so its maximum is T1 - 1."""
+    imv_dummy = torch.einsum("bst,bs->bt", alpha, p)
+    diff = imv_dummy[:, 1:] - imv_dummy[:, :-1]
+    delta = torch.maximum(diff, torch.zeros((), dtype=diff.dtype, device=diff.device))
+    delta = torch.cat([torch.zeros_like(delta[:, :1]), delta], dim=-1)
+    imv = torch.cumsum(delta, dim=-1) * mel_mask.float()
+    last = torch.maximum(imv.amax(dim=-1), torch.tensor(1e-8, device=imv.device))
+    scale = (text_lengths.float() - 1.0) / last
+    return imv * scale[:, None]
+
+
+def aligned_positions(imv: torch.Tensor, p: torch.Tensor, mel_mask: torch.Tensor, text_mask: torch.Tensor,
+                      sigma_e: float = 0.5) -> torch.Tensor:
+    """Expected mel position per token, e [B, T1]:
+    e[b, i] = sum_t softmax_t(-sigma_e (imv[b, t] - p[b, i])^2) q[b, t]."""
+    energies = -sigma_e * torch.square(imv[:, None, :] - p[:, :, None])
+    beta = masked_softmax(energies, mel_mask[:, None, :], dim=-1)
+    e = torch.einsum("bst,bt->bs", beta, index_vector(mel_mask))
+    return e * text_mask.float()
 
 
 def alignment_from_positions(

@@ -28,6 +28,7 @@ from efficient_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from efficient_tts_tpu_torch.ops.alignment import boundary_truncation_correction
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.masks import bucket_length, sequence_mask
+from efficient_tts_tpu_torch.utils.precision import full_f32
 
 
 AcousticModel = EftsCNN | EftsTransformer
@@ -35,13 +36,8 @@ AcousticModel = EftsCNN | EftsTransformer
 
 @contextlib.contextmanager
 def _full_f32():
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.inference_mode():
-            yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    with full_f32(), torch.inference_mode():
+        yield
 
 
 def _inputs(model, voc, text, text_lengths, device):

@@ -1,0 +1,165 @@
+"""Step-based trainer of the acoustic models (counterpart of `efficient_tts_tpu/train/efts_trainer.py:EftsTrainer`).
+
+Runs `train_step` until `train_max_steps` over any iterator of (epoch,
+batch) pairs, with interval logging (means over the interval), interval
+eval and interval saves:
+  * the metrics of a step are packed into one device vector and read back
+    one step late, after the next step has been queued, so the readback
+    does not leave the card idle;
+  * a non-finite loss saves the state as `diverged-state-{step}` (invisible
+    to `latest_checkpoint`) and raises FloatingPointError; the metrics are
+    read one step late, so that state is one or two updates past the step;
+  * SIGTERM and Ctrl-C save a checkpoint before the exception leaves `run`.
+The JAX trainer's eval plots (`_plot_diagnostics`) are not ported: they
+need `utils/plotting`. Entry points run on `device` ("cuda" by default)
+and raise without a card unless the caller passes device="cpu".
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from efficient_tts_tpu_torch.train import checkpoint as ckpt
+from efficient_tts_tpu_torch.train.efts_train_step import METRIC_KEYS, make_eval_step, make_train_step
+from efficient_tts_tpu_torch.train.state import create_state
+from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
+from efficient_tts_tpu_torch.utils.preemption import convert_sigterm
+
+log = logging.getLogger(__name__)
+
+
+class EftsTrainer:
+    def __init__(self, cfg, tx, train_iter, eval_batches=None, outdir: str = "exp",
+                 train_max_steps: int = 1_000_000, save_interval_steps: int = 5000,
+                 eval_interval_steps: int = 1000, log_interval_steps: int = 1000, seed: int = 0,
+                 writer=None, max_keep_checkpoints: int | None = None, accum_steps: int = 1,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.tx = tx
+        self.train_iter = train_iter
+        self.eval_batches = eval_batches or []
+        self.outdir = outdir
+        self.train_max_steps = train_max_steps
+        self.save_interval_steps = save_interval_steps
+        self.eval_interval_steps = eval_interval_steps
+        self.log_interval_steps = log_interval_steps
+        self.gen = torch.Generator().manual_seed(seed)  # the host-side dropout key
+        self.writer = writer
+        self.max_keep_checkpoints = max_keep_checkpoints
+        self.state = None
+        self._train_step = make_train_step(cfg, tx, accum_steps=accum_steps, device=self.device)
+        self._eval_step = make_eval_step(cfg, device=self.device)
+        os.makedirs(outdir, exist_ok=True)
+
+    # -- state ------------------------------------------------------------
+
+    def init_state(self, model):
+        check_module_device(model, self.device)
+        self.state = create_state(model, self.tx)
+
+    def save(self, name: str | None = None) -> str:
+        path = ckpt.save_checkpoint(self.outdir, self.state, name=name)
+        log.info("saved checkpoint %s", path)
+        if self.max_keep_checkpoints:
+            ckpt.prune_checkpoints(self.outdir, self.max_keep_checkpoints)
+        return path
+
+    def load(self, path, load_only_params: bool = False):
+        self.state = ckpt.load_checkpoint(path, self.state, load_only_params)
+
+    # -- loop -------------------------------------------------------------
+
+    def run(self):
+        """Train until `train_max_steps`; SIGTERM and Ctrl-C checkpoint first."""
+        with convert_sigterm():
+            return self._run()
+
+    def _run(self):
+        if self.state is None:
+            raise RuntimeError("call init_state first")
+        totals = defaultdict(float)
+        count = 0
+        t_last = time.time()
+        step = self.state["step"]
+        pending = None  # (step, epoch, packed metrics) awaiting the host readback
+
+        def consume(p):
+            nonlocal count, t_last
+            pstep, pepoch, packed = p
+            vals = packed.tolist()
+            count += 1
+            self._check_finite(vals[0], pstep)
+            for k, v in zip(METRIC_KEYS, vals):
+                totals[k] += v
+            if pstep % self.log_interval_steps == 0:
+                dt = time.time() - t_last
+                means = {k: v / max(count, 1) for k, v in totals.items()}
+                log.info("step %d (epoch %d): loss=%.4f mel=%.4f dur=%.4f (%.2f steps/s)", pstep, pepoch,
+                         means["loss"], means["mel_loss"], means["duration_loss"], count / max(dt, 1e-9))
+                if self.writer is not None:
+                    for k, v in means.items():
+                        self.writer.add_scalar(f"train/{k}", v, pstep)
+                totals.clear()
+                count = 0
+                t_last = time.time()
+
+        try:
+            while step < self.train_max_steps:
+                epoch, batch = next(self.train_iter)
+                self.state, metrics = self._train_step(self.state, batch, self.gen)
+                step = self.state["step"]
+                packed = torch.stack([metrics[k] for k in METRIC_KEYS])
+                if pending is not None:
+                    consume(pending)
+                pending = (step, epoch, packed)
+                if self.eval_batches and step % self.eval_interval_steps == 0:
+                    self.evaluate(step)
+                if step % self.save_interval_steps == 0:
+                    self.save()
+            if pending is not None:
+                consume(pending)
+                pending = None
+        except KeyboardInterrupt:
+            self.save()
+            raise
+        return self.state
+
+    def _check_finite(self, loss_val: float, step: int):
+        if math.isfinite(loss_val):
+            return
+        log.error("non-finite loss %r at step %d: saving the state and stopping", loss_val, step)
+        self.save(name=f"diverged-state-{step}")
+        raise FloatingPointError(f"training diverged: loss={loss_val} at step {step}")
+
+    def evaluate(self, step: int) -> dict:
+        """Mean eval metrics, and the alignment's mean per-frame peak over the
+        first batch's first 4 utterances (about 1/T1 when it collapsed)."""
+        totals = defaultdict(float)
+        peak = None
+        for batch in self.eval_batches:
+            out = self._eval_step(self.state["params"], batch)
+            if peak is None:
+                a = out["reconst_alpha"].cpu().numpy()
+                tl, ml = np.asarray(batch["text_lengths"]), np.asarray(batch["mel_lengths"])
+                peak = float(np.mean([a[i, :tl[i], :ml[i]].max(axis=0).mean() for i in range(min(4, a.shape[0]))]))
+                if peak < 2.5 / max(float(tl.max()), 1.0):
+                    log.warning("alignment looks collapsed (mean peak %.4f, uniform 1/T1 = %.4f)", peak,
+                                1.0 / max(float(tl.max()), 1.0))
+            for k in METRIC_KEYS:
+                totals[k] += float(out[k])
+        means = {k: v / max(len(self.eval_batches), 1) for k, v in totals.items()}
+        if peak is not None:
+            means["align_peak"] = peak
+        log.info("eval step %d: %s", step, " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+        if self.writer is not None:
+            for k, v in means.items():
+                self.writer.add_scalar(f"eval/{k}", v, step)
+        return means

@@ -22,6 +22,7 @@ PEAK_BYTES = 3.35e12  # HBM3
 MRF_STAGES = ((256, 4096), (128, 32768), (64, 65536), (32, 131072))
 V1_KERNEL_SIZES = (3, 7, 11)
 V1_CONVS_PER_BRANCH = 6  # dilations 1/3/5, two convs each
+TRAIN_B = 64  # the EFTS-Transformer training batch
 
 
 def bound_ms(ops: float, nbytes: float, peak: str) -> tuple[float, str]:
@@ -46,14 +47,16 @@ def flash_work(b: int, h: int, t: int, dk: int, segmented: bool) -> tuple[float,
     return 4.0 * b * h * t * t * dk, 4 * b * h * t * dk * 4 + (2 * b * t * 4 if segmented else 0)
 
 
-def flash_backward_work(b: int, h: int, t: int, dk: int, part: str) -> tuple[float, float]:
-    """(operations, bytes) of the library backward's two calls in f32: "dkv"
+def flash_backward_work(b: int, h: int, t: int, dk: int, part: str, segmented: bool = False) -> tuple[float, float]:
+    """(operations, bytes) of the backward's two kernels in f32: "dkv"
     recomputes s and dp and forms dv and dk (4 products), "dq" recomputes s
-    and dp and forms dq (3). Each reads q, k, v, do and the [B, H, T] l, m
-    and di once and writes its gradients once."""
+    and dp and forms dq (3). Each reads q, k, v, do, the [B, H, T] l, m and
+    di and the two int32 segment id arrays once and writes its gradients
+    once."""
     n_products, n_out = {"dkv": (4, 2), "dq": (3, 1)}[part]
     head = b * h * t * dk * 4
-    return 2.0 * n_products * b * h * t * t * dk, (4 + n_out) * head + 3 * b * h * t * 4
+    return (2.0 * n_products * b * h * t * t * dk,
+            (4 + n_out) * head + 3 * b * h * t * 4 + (2 * b * t * 4 if segmented else 0))
 
 
 def v1_taps():
@@ -77,11 +80,13 @@ def table(b: int = 16) -> list[dict]:
         ms, by = bound_ms(ops, nbytes, "tf32")
         rows.append({"kernel": "K4 flash forward", "shape": [b, 4, t, 96], "segment_ids": seg, "peak": "tf32",
                      "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
+    # the backward at the training batch (lj_efts_transformer_phnseq.yaml: 64)
     for part in ("dkv", "dq"):
-        ops, nbytes = flash_backward_work(b, 4, 512, 96, part)
-        ms, by = bound_ms(ops, nbytes, "tf32")
-        rows.append({"kernel": f"K4 flash backward {part}", "shape": [b, 4, 512, 96], "peak": "tf32",
-                     "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
+        for t, seg in ((512, False), (128, True)):
+            ops, nbytes = flash_backward_work(TRAIN_B, 4, t, 96, part, seg)
+            ms, by = bound_ms(ops, nbytes, "tf32")
+            rows.append({"kernel": f"K4 flash backward {part}", "shape": [TRAIN_B, 4, t, 96], "segment_ids": seg,
+                         "peak": "tf32", "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
     # the rate probe: [M, 128] x [128, 128], 8 products per tile (scripts/probe_int8_pallas.py)
     m, k, n, repeat = 1 << 20, 128, 128, 8
     for peak, elem in (("bf16", 2), ("int8", 1)):

@@ -1,0 +1,156 @@
+"""The Hopper flash attention backward kernels (dkv, dq) against their plain versions, on the card.
+
+Marked `cuda`: skips on a host without an NVIDIA card (the CPU tests hold
+the plain backward against the library's reference). On the card it builds
+`csrc/flash_attention.cu` and checks:
+  * the forward kernel's residuals m and l against the plain ones;
+  * dq, dk and dv through `FlashAttention` (one forward, one dkv and one dq
+    launch) against `torch.autograd.grad` through `flash_attention_reference`,
+    at the training path's shapes ([64, 4, 512, 96] without segment ids,
+    [64, 4, 128, 96] with ragged ones) and over head widths, lengths and
+    both input layouts;
+  * the dkv and dq kernels against `flash_attention_bwd_reference` fed the
+    kernel's own residuals;
+  * that the backward's gradients are bitwise the same from run to run (no
+    atomics).
+
+Tolerance: the kernels round q, k, v, do, p and ds to TF32 (2^-11
+relative); the plain versions are f32. On N(0, 1) inputs the gradients'
+errors are near 1e-3 of their RMS: the bound is relative RMS <= 5e-3 and
+max error <= 2e-2 of the gradient's range. m and l: an error d in a score
+moves m by up to d and l by a factor up to exp(d); TF32 operands give d up
+to 2^-10 sm_scale sum_i |q_i k_i|, a few 1e-3 on these inputs, so rtol and
+atol are 5e-3 (measured on an H100: 1.5e-3 relative at dk = 8).
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+GRAD_TOL = {"max_abs_over_range": 2e-2, "rel_rms": 5e-3}
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _inputs(b, h, t, dk, seed, device, layout="bthd"):
+    """N(0, 1) q, k, v and do; "bthd" gives the [B, H, T, dk] views of [B, T,
+    H, dk] tensors that the q/k/v linears give."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (b, h, t, dk) if layout == "bhtd" else (b, t, h, dk)
+    xs = [torch.randn(shape, generator=g).to(device) for _ in range(4)]
+    if layout != "bhtd":
+        xs = [x.transpose(1, 2) for x in xs]
+    return xs
+
+
+def _segments(b, t, device, seed=0):
+    from efficient_tts_tpu_torch.ops.flash_attention import SegmentIds
+
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to(device)
+    return SegmentIds(ids, ids)
+
+
+def _check(out, ref, tol=GRAD_TOL):
+    err = (out - ref).abs()
+    assert float(err.max()) <= tol["max_abs_over_range"] * float(ref.abs().max())
+    assert float((err.square().mean() / ref.square().mean()).sqrt()) <= tol["rel_rms"]
+
+
+def _grads(fn, q, k, v, do, seg, scale):
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = fn(qs, ks, vs, seg, scale)
+    return torch.autograd.grad(out, (qs, ks, vs), do)
+
+
+@pytest.mark.parametrize("shape,segmented", [((64, 4, 512, 96), False), ((64, 4, 128, 96), True)])
+def test_backward_matches_plain_gradients_at_training_shapes(device, shape, segmented):
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    b, h, t, dk = shape
+    q, k, v, do = _inputs(b, h, t, dk, seed=t, device=device)
+    seg = _segments(b, t, device) if segmented else None
+    scale = dk**-0.5
+    fa.reset_launches()
+    got = _grads(fa.flash_attention, q, k, v, do, seg, scale)
+    torch.cuda.synchronize()
+    assert fa.launches == {(kernel, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}
+    ref = _grads(fa.flash_attention_reference, q, k, v, do, seg, scale)
+    for out, r in zip(got, ref):
+        assert out.shape == r.shape and out.transpose(1, 2).is_contiguous()
+        _check(out, r)
+
+
+@pytest.mark.parametrize("dk", [32, 64, 96, 128])
+@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("layout", ["bthd", "bhtd"])
+def test_backward_matches_plain_gradients(device, dk, t, segmented, layout):
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(3, 2, t, dk, seed=dk + t, device=device, layout=layout)
+    seg = _segments(3, t, device, seed=dk) if segmented else None
+    scale = 1.0 / dk**0.5
+    got = _grads(fa.flash_attention, q, k, v, do, seg, scale)
+    ref = _grads(fa.flash_attention_reference, q, k, v, do, seg, scale)
+    for out, r in zip(got, ref):
+        _check(out, r)
+
+
+@pytest.mark.parametrize("dk", [8, 40, 96])
+def test_forward_residuals_and_kernels_against_the_plain_backward(device, dk):
+    """m and l from the forward kernel against the plain ones; the dkv and
+    dq kernels against `flash_attention_bwd_reference` on the same residuals."""
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(2, 4, 192, dk, seed=dk, device=device)
+    seg = _segments(2, 192, device, seed=1)
+    o, m, l = fa._forward_kernel(q, k, v, seg, 0.3, residuals=True)
+    o_ref, m_ref, l_ref = fa.flash_attention_reference(q, k, v, seg, 0.3, return_residuals=True)
+    torch.testing.assert_close(m, m_ref, rtol=5e-3, atol=5e-3)
+    torch.testing.assert_close(l, l_ref, rtol=5e-3, atol=5e-3)
+    _check(o, o_ref, {"max_abs_over_range": 1e-2, "rel_rms": 2e-3})
+    got = fa._backward_kernels(q, k, v, o, m, l, do, seg, 0.3)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, m, l, do, seg, 0.3)
+    for out, r in zip(got, ref):
+        _check(out, r)
+
+
+def test_backward_is_deterministic(device):
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(4, 4, 256, 96, seed=3, device=device)
+    seg = _segments(4, 256, device)
+    first = _grads(fa.flash_attention, q, k, v, do, seg, 0.1)
+    second = _grads(fa.flash_attention, q, k, v, do, seg, 0.1)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_no_gradient_needed_launches_the_forward_alone(device):
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _inputs(2, 2, 128, 32, seed=0, device=device)
+    fa.reset_launches()
+    with torch.no_grad():
+        fa.flash_attention(q.detach().requires_grad_(True), k, v)
+    assert fa.launches == {("fwd", 128, False): 1}
+
+
+def test_backward_rejects_what_it_does_not_take(device):
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(1, 2, 128, 32, seed=0, device=device)
+    o, m, l = fa._forward_kernel(q, k, v, None, 1.0, residuals=True)
+    with pytest.raises(ValueError):
+        fa._backward_kernels(q, k, v, o, m, l, do[:, :, :64], None, 1.0)
+    with pytest.raises(ValueError):
+        fa._backward_kernels(q, k, v, o, m, l, do.double(), None, 1.0)

@@ -40,6 +40,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     expected = [m.name for m in pkgutil.walk_packages(efficient_tts_tpu_torch.__path__,
                                                       "efficient_tts_tpu_torch.")]
     assert n_modules == len(expected) >= 15
+    # the training slice's modules are among those imported
+    for name in ("train.efts_train_step", "train.efts_trainer", "train.optim", "train.checkpoint",
+                 "losses.fastspeech", "utils.preemption"):
+        assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
 EFTS_CFG = EftsCNNConfig(num_symbols=10, symbol_embedding_dim=8, n_channels=8, n_text_encoder_layer=1,
@@ -95,3 +99,31 @@ def test_models_on_another_device_than_the_call_raise():
     vm = compat.hifigan_generator_from_jax(init.init_generator(1, VOC_CFG), VOC_CFG, device="cpu")
     with pytest.raises(ValueError, match="holds tensors on meta"):
         pipeline.synthesize_fixed(em, vm, np.ones((1, 4)), np.array([4]), 32, device="cpu")
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """The train step, eval step and trainer run on the card unless the
+    caller asks for the CPU, and never move there on their own."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.train.efts_train_step import make_eval_step, make_train_step
+    from efficient_tts_tpu_torch.train.efts_trainer import EftsTrainer
+    from efficient_tts_tpu_torch.train.optim import AdamWarmup
+    from efficient_tts_tpu_torch.train.state import create_state
+
+    tx = AdamWarmup()
+    for call in (lambda: make_train_step(TR_CFG, tx), lambda: make_eval_step(TR_CFG),
+                 lambda: EftsTrainer(TR_CFG, tx, iter(()), outdir=str(tmp_path)),
+                 lambda: compat.efts_transformer_from_jax(init.init_efts_transformer(0, TR_CFG), TR_CFG,
+                                                          trainable=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    model = compat.efts_transformer_from_jax(init.init_efts_transformer(0, TR_CFG), TR_CFG, device="cpu",
+                                             trainable=True)
+    batch = {"text": np.ones((1, 4), np.int32), "text_lengths": np.array([4]),
+             "mel": np.zeros((1, 8, TR_CFG.odim), np.float32), "mel_lengths": np.array([8])}
+    state, metrics = make_train_step(TR_CFG, tx, device="cpu")(create_state(model, tx), batch)
+    assert state["step"] == 1 and set(metrics) == {"loss", "mel_loss", "duration_loss", "grad_norm"}
+    # a model on another device than the step's is refused, not moved
+    with pytest.raises(ValueError, match="holds tensors on meta"):
+        make_train_step(TR_CFG, tx, device="cpu")(create_state(model.to("meta"), tx), batch)
