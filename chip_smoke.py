@@ -16,7 +16,13 @@ Phases, each of which raises on failure:
      one forward, one dkv and one dq launch) at the training shapes
      ([64, 4, 512, 96] without and with ragged segment ids, [64, 4, 128,
      96] with them) against `torch.autograd.grad` through
-     `flash_attention_reference`;
+     `flash_attention_reference`; the f32 MRF kernel at the four V1 stage
+     shapes against `mrf_stage_reference` (f32, TF32 off); the W8A8 MRF
+     kernel bit for bit against `mrf_stage_int8_reference` at [16, 65536,
+     64], [16, 131072, 32] and the bench's [16, 262144, 32], with dynamic
+     and with static activation scales; the matmul probe at [2^20, 128]
+     against `probe_matmul_reference`, int8 bit for bit, bf16 within
+     relative RMS 1e-2;
   4. main paths at full width, seeded random weights through the weight
      bridge; the launch counts are set to 0 before each path and read after
      it:
@@ -40,12 +46,24 @@ Phases, each of which raises on failure:
         4 decoder calls at T=512, all with segment ids);
      d. the published yaml (dropout 0.1): 3 steps with an explicit
         generator; finite losses and no flash launch at all;
+     e. f32 synthesis, the default compute_dtype=None: `synthesize` on the
+        ragged batches and `synthesize_fixed` at T2=512 with default
+        arguments, for EFTS-CNN and for EFTS-Transformer; 72 launches of
+        the f32 MRF kernel per synthesis, and the wav against the same path
+        with `mrf_impl="plain"` (relative RMS <= 1e-4, max <= 1e-3);
+     f. the benchmarks' entry points: `bench.mrf_fused.main` (K1, the W8A8
+        kernel with dynamic and static scales, and the cuDNN bf16 stage at
+        [16, 262144, 32]) and `bench.probe_int8.main` (the probe in bf16 and
+        int8 beside the library's chains), once each;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
      time by kernel and idle share from torch.profiler, and each MRF stage
      kernel beside its bound, its plain version and the 18 cuDNN convs of
-     the stage. The flash kernels at
+     the stage, in bf16 and in f32; the f32 `synthesize_fixed` of both
+     models; the W8A8 kernel beside K1 and the cuDNN bf16 stage at the
+     bench's shape, and its plain version; the probe beside its plain
+     version and the library's chains. The flash kernels at
      their shapes, their plain versions and `F.scaled_dot_product_attention`
      (forward, and its backward for the backward kernels) are timed by
      their device time (torch.profiler, 20 calls), since one call's
@@ -60,8 +78,6 @@ Imports nothing of JAX or of the JAX package.
 import json
 import math
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -77,6 +93,18 @@ N_TIMED = 20
 STAGE_TOL = {"max_abs_over_range": 2**-5, "rel_rms": 1e-2}
 # whole waveform, kernel vs plain MRF stages on the same weights
 WAV_TOL = {"max_abs_over_range": 0.05, "rel_rms": 1e-2}
+# f32 MRF kernel vs plain version (cuDNN, TF32 off): no rounding but the f32
+# sums' order; plain TF32 (about 4e-4 relative a conv) would fail it
+F32_STAGE_TOL = {"max_abs_over_range": 5e-4, "rel_rms": 5e-5}
+# f32 waveform, MRF kernel vs plain MRF stages: absolute max (the wav lies in
+# [-1, 1]) and relative RMS
+F32_WAV_TOL = {"max_abs": 1e-3, "rel_rms": 1e-4}
+# the matmul probe's bf16 mode vs its plain version (f32 sums in another
+# order, then 8 bf16 roundings); its int8 mode and the W8A8 stage must be
+# bit-equal to theirs
+PROBE_BF16_TOL = {"rel_rms": 1e-2}
+# the W8A8 stage's shapes: two V1 stages and bench/mrf_fused.py's
+INT8_SHAPES = ((64, 65536), (32, 131072), (32, 262144))
 # Flash kernel vs plain version: the kernel rounds q, k, v and the softmax
 # weights to TF32 (2^-11 relative), the plain version is f32; on N(0, 1)
 # inputs that leaves errors near 1e-3 of the output range.
@@ -128,22 +156,6 @@ def within(stats, tol):
             and stats["rel_rms"] <= tol["rel_rms"])
 
 
-def time_ms(torch, fn, n=N_TIMED, warmup=2):
-    """CUDA-event times of `n` calls after `warmup`: {median, p25, p75, n} in ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    q1, q2, q3 = statistics.quantiles(times, n=4)
-    return {"median": q2, "p25": q1, "p75": q3, "n": n}
-
-
 def device_profile(torch, fn, n=3):
     """Device time by kernel name per run of `fn`, from torch.profiler's
     CUDA activity; an empty dict when the profiler saw no device time."""
@@ -187,24 +199,44 @@ def host_us(torch, fn, n=50):
     return (t1 - t0) / n * 1e6
 
 
-def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes):
-    """Seeded bf16 activations and unit-gain weights (std 1/sqrt(k*C)), so
-    every conv of the chain moves the output."""
+def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes, dtype=None):
+    """Seeded activations and unit-gain weights (std 1/sqrt(k*C)), so every
+    conv of the chain moves the output; bf16 unless `dtype` says otherwise."""
     from efficient_tts_tpu_torch.ops.mrf import conv_order
 
+    dtype = dtype or torch.bfloat16
     g = torch.Generator().manual_seed(seed)
     order = conv_order(kernel_sizes, dilation_sizes)
-    ws = [(torch.randn((k, c, c), generator=g) / (k * c) ** 0.5).to(dev, torch.bfloat16) for k, _ in order]
+    ws = [(torch.randn((k, c, c), generator=g) / (k * c) ** 0.5).to(dev, dtype) for k, _ in order]
     bs = (0.1 * torch.randn((len(order), c), generator=g)).to(dev)
-    x = torch.randn((B, t, c), generator=g).to(dev, torch.bfloat16)
+    x = torch.randn((B, t, c), generator=g).to(dev, dtype)
     return x, ws, bs, order
 
 
-def stage_bound_ms(c, t, order):
+def stage_bound_ms(c, t, order, kind="bf16"):
+    """The stage's bound: "bf16" (K1), "fp32" (K3 f32: f32 values, FP32's
+    peak) or "int8" (K2: bf16 activations, int8 weights with f32 scales)."""
     from efficient_tts_tpu_torch.utils.roofline import bound_ms, mrf_stage_work
 
-    ops, nbytes = mrf_stage_work(B, t, c, [k for k, _ in order], act_bytes=2, weight_bytes=2)
-    return (*bound_ms(ops, nbytes, "bf16"), ops)
+    act, wb, vecs = {"bf16": (2, 2, 1), "fp32": (4, 4, 1), "int8": (2, 1, 2)}[kind]
+    ops, nbytes = mrf_stage_work(B, t, c, [k for k, _ in order], act_bytes=act, weight_bytes=wb, per_conv_vectors=vecs)
+    return (*bound_ms(ops, nbytes, kind), ops)
+
+
+def cudnn_convs(torch, x, ws, bs, order):
+    """The stage's 18 convolutions alone, through F.conv1d (cuDNN), on
+    [B, C, T] copies of the inputs in their dtype: a yardstick of speed."""
+    import torch.nn.functional as F
+
+    x_ncw = x.transpose(1, 2).contiguous()
+    w_ncw = [w.permute(1, 2, 0).contiguous() for w in ws]
+    b = bs.to(x.dtype)
+
+    def run():
+        for i, (k, d) in enumerate(order):
+            F.conv1d(x_ncw, w_ncw[i], b[i], padding=(k - 1) // 2 * d, dilation=d)
+
+    return run
 
 
 def flash_inputs(torch, t, seed, dev, segmented, b=B, n=3):
@@ -327,6 +359,11 @@ def check_synthesize(pipeline, model, batches, results, hop, multiple):
             raise AssertionError("waveform tail beyond wav_lengths is not silent")
 
 
+def keyed(launches):
+    """A launch-count dict with tuple keys, for a JSON line."""
+    return {"/".join(map(str, k)) if isinstance(k, tuple) else k: n for k, n in launches.items()}
+
+
 def check_fixed(torch, wav, mel, t2, hop, odim):
     if (wav.shape != (B, t2 * hop) or mel.shape != (B, t2, odim)
             or not bool(torch.isfinite(wav).all()) or not bool(torch.isfinite(mel).all())):
@@ -346,20 +383,23 @@ def main() -> int:
     import torch.nn.functional as F
 
     from efficient_tts_tpu_torch import _build, compat, init, pipeline
+    from efficient_tts_tpu_torch import bench
+    from efficient_tts_tpu_torch.bench import card_line, time_ms
+    from efficient_tts_tpu_torch.bench import mrf_fused as bench_mrf
+    from efficient_tts_tpu_torch.bench import probe_int8 as bench_probe
     from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
     from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
     from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
     from efficient_tts_tpu_torch.ops import flash_attention as fa
-    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.ops import mrf, mrf_int8
+    from efficient_tts_tpu_torch.ops import probe_matmul as pm
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
     # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     CARD["card"] = card
     log({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
@@ -431,6 +471,46 @@ def main() -> int:
                 "rel_rms": max(stats[n]["rel_rms"] for n in names),
                 "max_abs_over_range": max(stats[n]["max_abs_err"] / stats[n]["range"] for n in names)}
         del q, k, v, do, seg, got, ref
+    # the f32 MRF kernel (K3's f32 mode) at the V1 stage shapes
+    f32_rows = {}
+    for c, t in stages:
+        x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds,
+                                        dtype=torch.float32)
+        out = mrf.mrf_stage(x, ws, bs, ks, ds)
+        torch.cuda.synchronize()
+        stats = err_stats(out, mrf.mrf_stage_reference(x, ws, bs, ks, ds))
+        log({"phase": "kernel_vs_plain", "kernel": "mrf_stage_f32", "channels": c, "shape": [B, t, c], **stats,
+             "tolerance": F32_STAGE_TOL})
+        if not within(stats, F32_STAGE_TOL):
+            raise AssertionError(f"f32 MRF kernel disagrees with its plain version at C={c}: {stats}")
+        f32_rows[c] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
+        del x, ws, bs, out
+    # the W8A8 MRF kernel (K2), bit for bit, on the bench's weights and input
+    for c, t in INT8_SHAPES:
+        st = bench_mrf.make_stage(B, t * c // bench_mrf.LANES, c, dev)
+        for act in (None, st["act_scales"]):
+            args = (st["x"], st["wq"], st["scales"], st["biases"], ks, ds, act)
+            out = mrf_int8.mrf_stage_int8(*args)
+            torch.cuda.synchronize()
+            stats = err_stats(out, mrf_int8.mrf_stage_int8_reference(*args))
+            log({"phase": "kernel_vs_plain", "kernel": "mrf_stage_int8", "scales": "dynamic" if act is None
+                 else "static", "shape": [B, t, c], **stats, "tolerance": "bit-equal"})
+            if stats["max_abs_err"] != 0.0:
+                raise AssertionError(f"W8A8 MRF kernel differs from its plain version at {[B, t, c]}: {stats}")
+        del st, args, out
+    # the matmul probe (K5) at the bench's shape
+    probe_rows = {}
+    for name, (x, w) in bench_probe.make_inputs(bench_probe.M, dev).items():
+        out = pm.probe_matmul(x, w)
+        torch.cuda.synchronize()
+        stats = err_stats(out, pm.probe_matmul_reference(x, w))
+        tol = PROBE_BF16_TOL if name == "bf16" else "bit-equal"
+        log({"phase": "kernel_vs_plain", "kernel": f"probe_matmul_{name}", "shape": list(x.shape), **stats,
+             "tolerance": tol})
+        if stats["rel_rms"] > PROBE_BF16_TOL["rel_rms"] or (name == "int8" and stats["max_abs_err"] != 0.0):
+            raise AssertionError(f"the {name} probe kernel disagrees with its plain version: {stats}")
+        probe_rows[name] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
+        del x, w, out
 
     # 4a. EFTS-CNN main path at full width
     efts = compat.efts_cnn_from_jax(init.init_efts(0, efts_cfg), efts_cfg, device="cuda")
@@ -447,9 +527,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(mrf.launches)
     n_synth = len(batches) + 1
-    expected = {c: 18 * n_synth for c, _ in stages}
-    log({"phase": "main_path", "model": "efts_cnn", "syntheses": n_synth, "mrf_launches": launches,
-         "expected": expected, "flash_launches": sum(fa.launches.values())})
+    expected = {("bf16", c): 18 * n_synth for c, _ in stages}
+    log({"phase": "main_path", "model": "efts_cnn", "syntheses": n_synth, "mrf_launches": keyed(launches),
+         "expected": keyed(expected), "flash_launches": sum(fa.launches.values())})
     if launches != expected:
         raise AssertionError(f"MRF launches {launches}, expected {expected}")
 
@@ -487,11 +567,11 @@ def main() -> int:
     if any(kernel != "fwd" for kernel, _, _ in fa.launches):
         raise AssertionError(f"synthesis launched a backward kernel: {fa.launches}")
     n_tr = len(tr_batches) + 1
-    expected = {c: 18 * n_tr for c, _ in stages}
+    expected = {("bf16", c): 18 * n_tr for c, _ in stages}
     # per synthesis: 4 text-encoder layers (segment ids) and 4 decoder layers (none)
     expected_flash = {True: tr_cfg.n_text_encoder_layer * n_tr, False: tr_cfg.n_decoder_layer * n_tr}
-    log({"phase": "main_path", "model": "efts_transformer", "syntheses": n_tr, "mrf_launches": tr_launches,
-         "expected": expected, "flash_launches": {str(k): n for k, n in tr_flash.items()},
+    log({"phase": "main_path", "model": "efts_transformer", "syntheses": n_tr, "mrf_launches": keyed(tr_launches),
+         "expected": keyed(expected), "flash_launches": {str(k): n for k, n in tr_flash.items()},
          "flash_expected": {str(k): n for k, n in expected_flash.items()}})
     if tr_launches != expected or tr_flash != expected_flash:
         raise AssertionError(f"transformer path launches MRF {tr_launches}, flash {tr_flash}; "
@@ -514,6 +594,33 @@ def main() -> int:
             or int((wl_fixed - wl_plain).abs().max()) > hop):
         raise AssertionError(f"synthesize_fixed with the flash kernel disagrees with the plain path: {stats}")
     del wav_fixed, wav_plain, mel_fixed, mel_plain, tr_results
+
+    # 4e. f32 synthesis (compute_dtype=None, every other argument at its
+    # default) for both models, through the f32 MRF kernel
+    f32_launches = {}
+    for name, model, model_batches in (("efts_cnn", efts, batches), ("efts_transformer", tr, tr_batches)):
+        mrf.reset_launches()
+        f32_results = [pipeline.synthesize(model, voc, text, lengths) for text, lengths in model_batches]
+        wav_fixed, wl_fixed, mel_fixed = pipeline.synthesize_fixed(model, voc, *model_batches[0], T2)
+        torch.cuda.synchronize()
+        f32_launches[name] = dict(mrf.launches)
+        n_f32 = len(model_batches) + 1
+        expected = {("f32", c): 18 * n_f32 for c, _ in stages}
+        log({"phase": "main_path", "model": name, "dtype": "f32", "syntheses": n_f32,
+             "mrf_launches": keyed(f32_launches[name]), "expected": keyed(expected),
+             "buckets": [int(w.shape[1] // hop) for w, _ in f32_results]})
+        if f32_launches[name] != expected:
+            raise AssertionError(f"f32 synthesis launched MRF {f32_launches[name]}, expected {expected}")
+        check_synthesize(pipeline, model, model_batches, f32_results, hop, 64)
+        check_fixed(torch, wav_fixed, mel_fixed, T2, hop, model.cfg.odim)
+        wav_plain, wl_plain, _ = pipeline.synthesize_fixed(model, voc, *model_batches[0], T2, mrf_impl="plain")
+        stats = err_stats(wav_fixed, wav_plain)
+        log({"phase": "main_path_vs_plain_mrf", "model": name, "dtype": "f32", "t2": T2, **stats,
+             "tolerance": F32_WAV_TOL})
+        if (not torch.equal(wl_fixed, wl_plain) or stats["max_abs_err"] > F32_WAV_TOL["max_abs"]
+                or stats["rel_rms"] > F32_WAV_TOL["rel_rms"]):
+            raise AssertionError(f"f32 synthesize_fixed with the MRF kernel disagrees with the plain path: {stats}")
+        del f32_results, wav_fixed, wav_plain, mel_fixed
 
     # 4c. EFTS-Transformer training at the yaml's widths, dropout off: the kernel
     # path against the same model with the plain attention
@@ -612,26 +719,51 @@ def main() -> int:
     if fa.launches:
         raise AssertionError(f"training with dropout launched flash kernels: {fa.launches}")
 
+    # 4f. the benchmarks' entry points, once each: every version a first call,
+    # then warmup and timed calls
+    bench_calls = 1 + bench.WARMUP + bench.ITERS
+    mrf.reset_launches()
+    mrf_int8.reset_launches()
+    fused = bench_mrf.main([])
+    torch.cuda.synchronize()
+    int8_launches = dict(mrf_int8.launches)
+    expected = {(kind, 32): 18 * bench_calls for kind in ("dynamic", "static")}
+    expected["absmax", 32] = bench_calls
+    log({"phase": "main_path", "what": "bench.mrf_fused", **fused, "int8_launches": keyed(int8_launches),
+         "expected": keyed(expected), "mrf_launches": keyed(mrf.launches)})
+    if int8_launches != expected or mrf.launches != {("bf16", 32): 18 * bench_calls}:
+        raise AssertionError(f"bench.mrf_fused launched {int8_launches} and {mrf.launches}, expected {expected}")
+    pm.reset_launches()
+    probe = bench_probe.main([])
+    torch.cuda.synchronize()
+    probe_launches = dict(pm.launches)
+    log({"phase": "main_path", "what": "bench.probe_int8", **probe, "launches": probe_launches})
+    if probe_launches != {"bf16": bench_calls, "int8": bench_calls}:
+        raise AssertionError(f"bench.probe_int8 launched {probe_launches}")
+
     # 5. timing
-    def time_path(name, model, text, lengths, plain_model, plain_kw, extra):
+    def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16):
         """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
-        t_kernel = time_ms(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
-                                                                     compute_dtype=bf16))
-        t_plain = time_ms(torch, lambda: pipeline.synthesize_fixed(
-            plain_model, voc, text, lengths, T2, compute_dtype=bf16, **plain_kw))
+        t_kernel = time_ms(lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
+                                                                     compute_dtype=cdt))
+        t_plain = time_ms(lambda: pipeline.synthesize_fixed(
+            plain_model, voc, text, lengths, T2, compute_dtype=cdt, **plain_kw))
         ms = t_kernel["median"]
         audio_s = B * T2 * hop / voc_cfg.sampling_rate
+        dtype = "f32" if cdt is None else "bf16"
         log({"phase": "timing", "what": "synthesize_fixed", "model": name, "B": B, "T1": text.shape[1],
-             "T2": T2, "dtype": "bf16", "ms": ms, "ms_p25": t_kernel["p25"], "ms_p75": t_kernel["p75"],
+             "T2": T2, "dtype": dtype, "ms": ms, "ms_p25": t_kernel["p25"], "ms_p75": t_kernel["p75"],
              "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"]})
         prof = device_profile(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
-                                                                       compute_dtype=bf16))
-        summary = (profile_summary(prof, ms, ("mrf_conv_kernel", "flash_fwd_kernel")) if prof
-                   else {"device_busy_ms": "not measured"})
-        log({"phase": "profile", "what": "synthesize_fixed", "model": name, **summary})
+                                                                       compute_dtype=cdt))
+        summary = (profile_summary(prof, ms, ("mrf_conv_kernel", "mrf_conv_f32_kernel", "flash_fwd_kernel"))
+                   if prof else {"device_busy_ms": "not measured"})
+        log({"phase": "profile", "what": "synthesize_fixed", "model": name, "dtype": dtype, **summary})
 
     time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms")
     time_path("efts_transformer", tr, *tr_batches[0], tr_plain, {}, "plain_attention_ms")
+    time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms", cdt=None)
+    time_path("efts_transformer", tr, *tr_batches[0], tr, {"mrf_impl": "plain"}, "plain_mrf_ms", cdt=None)
     del efts, tr, tr_plain
 
     # the training step after warmup: the kernel path, the plain attention and
@@ -639,7 +771,7 @@ def main() -> int:
     flash_names = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
     for name, (state, step, gen) in {"flash": (state_k, step_k, None), "flash_plain": (state_p, step_p, None),
                                      "dropout_0.1": (state_d, step_d, drop_gen)}.items():
-        t_step = time_ms(torch, lambda: step(state, batch, gen))
+        t_step = time_ms(lambda: step(state, batch, gen))
         prof = device_profile(torch, lambda: step(state, batch, gen))
         summary = profile_summary(prof, t_step["median"], flash_names) if prof else {"device_busy_ms": "not measured"}
         log({"phase": "timing", "what": "train_step", "attention": name, "B": TRAIN_B, "T1": T1_TR,
@@ -648,35 +780,92 @@ def main() -> int:
     del state_k, state_p, state_d, step_k, step_p, step_d, model_k, model_p
 
     kernels = []
-    for c, t in stages:
-        x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds)
-        t_k = time_ms(torch, lambda: mrf.mrf_stage(x, ws, bs, ks, ds))
-        k_ms = t_k["median"]
-        p_ms = time_ms(torch, lambda: mrf.mrf_stage_reference(x, ws, bs, ks, ds))["median"]
-        x_ncw = x.transpose(1, 2).contiguous()
-        w_ncw = [w.permute(1, 2, 0).contiguous() for w in ws]
-        b_bf16 = bs.to(bf16)
+    # the MRF stage kernels at the V1 stage shapes: bf16 (K1) and f32 (K3)
+    for dtype, rows, tol in ((bf16, kernel_rows, STAGE_TOL), (torch.float32, f32_rows, F32_STAGE_TOL)):
+        f32 = dtype == torch.float32
+        for c, t in stages:
+            x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds,
+                                            dtype=dtype)
+            t_k = time_ms(lambda: mrf.mrf_stage(x, ws, bs, ks, ds))
+            k_ms = t_k["median"]
+            p_ms = time_ms(lambda: mrf.mrf_stage_reference(x, ws, bs, ks, ds))["median"]
+            lib_ms = time_ms(cudnn_convs(torch, x, ws, bs, order))["median"]
+            bound, bound_by, flops = stage_bound_ms(c, t, order, "fp32" if f32 else "bf16")
+            key = ("f32" if f32 else "bf16", c)
+            by_path = ({name: f32_launches[name].get(key, 0) for name in f32_launches} if f32
+                       else {"efts_cnn": launches.get(key, 0), "efts_transformer": tr_launches.get(key, 0)})
+            row = {
+                "name": f"mrf_stage_{'f32_' if f32 else ''}c{c}", "route": "cuda",
+                "source": "efficient_tts_tpu_torch/csrc/mrf_stage.cu",
+                "replaces": ("efficient_tts_tpu/ops/pallas/mrf.py:203" if f32
+                             else "efficient_tts_tpu/ops/pallas/mrf_packed.py:284"),
+                "launches": by_path["efts_cnn"], "launches_by_path": by_path,
+                **rows[c], "tolerance": tol,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+                "library_call": f"the stage's 18 F.conv1d (cuDNN) in {'f32, TF32 off' if f32 else 'bf16'}",
+            }
+            kernels.append(row)
+            log({"phase": "timing", "what": row["name"], "shape": [B, t, c], "tflops": flops / (k_ms * 1e9),
+                 "bound_share": bound / k_ms, "ms_p25": t_k["p25"], "ms_p75": t_k["p75"], "n": t_k["n"],
+                 "peak_used": "FP32 67 TFLOP/s" if f32 else "bf16 989 TFLOP/s",
+                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            del x, ws, bs
 
-        def cudnn_convs():
-            for i, (k, d) in enumerate(order):
-                F.conv1d(x_ncw, w_ncw[i], b_bf16[i], padding=(k - 1) // 2 * d, dilation=d)
-
-        lib_ms = time_ms(torch, cudnn_convs)["median"]
-        bound, bound_by, flops = stage_bound_ms(c, t, order)
+    # the W8A8 kernel at the bench's shape: its times from bench.mrf_fused's
+    # run above, beside K1 and the cuDNN bf16 stage there; its plain version
+    # and the stage's 18 bare cuDNN bf16 convs timed here
+    c, t = INT8_SHAPES[-1]
+    st = bench_mrf.make_stage(B, t * c // bench_mrf.LANES, c, dev)
+    lib_ms = time_ms(cudnn_convs(torch, st["x"], st["w_bf16"], st["biases"], st["order"]))["median"]
+    bound, bound_by, flops = stage_bound_ms(c, t, st["order"], "int8")
+    for kind, act, version in (("dynamic", None, "kernel int8"), ("static", st["act_scales"], "kernel int8-static")):
+        args = (st["x"], st["wq"], st["scales"], st["biases"], ks, ds, act)
+        p_ms = time_ms(lambda: mrf_int8.mrf_stage_int8_reference(*args), iters=5, warmup=1)["median"]
+        k_ms = fused["times"][version]["median"]
         row = {
-            "name": f"mrf_stage_c{c}", "route": "cuda",
-            "source": "efficient_tts_tpu_torch/csrc/mrf_stage.cu",
+            "name": f"mrf_stage_int8_{kind}_c{c}", "route": "cuda",
+            "source": "efficient_tts_tpu_torch/csrc/mrf_stage_int8.cu",
             "replaces": "efficient_tts_tpu/ops/pallas/mrf_packed.py:284",
-            "launches": launches.get(c, 0),
-            "launches_by_path": {"efts_cnn": launches.get(c, 0), "efts_transformer": tr_launches.get(c, 0)},
-            **kernel_rows[c], "tolerance": STAGE_TOL,
+            "launches": int8_launches.get((kind, c), 0),
+            "launches_by_path": {"bench.mrf_fused": int8_launches.get((kind, c), 0),
+                                 "bench.mrf_fused absmax": int8_launches.get(("absmax", c), 0) if act is None else 0},
+            "max_abs_err": 0.0, "tolerance": "bit-equal",
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_call": "the stage's 18 F.conv1d (cuDNN) in bf16",
+            "k1_bf16_ms": fused["times"]["kernel bf16"]["median"],
+            "cudnn_bf16_stage_ms": fused["times"]["cudnn bf16"]["median"],
         }
         kernels.append(row)
-        log({"phase": "timing", "what": row["name"], "shape": [B, t, c], "tflops": flops / (k_ms * 1e9),
-             "bound_share": bound / k_ms, "ms_p25": t_k["p25"], "ms_p75": t_k["p75"], "n": t_k["n"],
+        log({"phase": "timing", "what": row["name"], "shape": [B, t, c], "tops": flops / (k_ms * 1e9),
+             "bound_share": bound / k_ms, "peak_used": "int8 1979 TOP/s",
+             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "k1_bf16_ms",
+                                    "cudnn_bf16_stage_ms")}})
+    del st, args
+
+    # the probe at [2^20, 128] x [128, 128] x 8: its times and the library's
+    # chains from bench.probe_int8's run above, its plain version timed here
+    from efficient_tts_tpu_torch.utils.roofline import bound_ms, probe_work
+
+    for name, (x, w) in bench_probe.make_inputs(bench_probe.M, dev).items():
+        p_ms = time_ms(lambda: pm.probe_matmul_reference(x, w))["median"]
+        ops, nbytes = probe_work(x.shape[0], bench_probe.REPEAT, x.element_size())
+        bound, bound_by = bound_ms(ops, nbytes, name)
+        k_ms = probe["times"][f"kernel {name}"]["median"]
+        row = {
+            "name": f"probe_matmul_{name}", "route": "cuda",
+            "source": "efficient_tts_tpu_torch/csrc/probe_matmul.cu",
+            "replaces": "scripts/probe_int8_pallas.py:42",
+            "launches": probe_launches.get(name, 0), "launches_by_path": {"bench.probe_int8": probe_launches.get(name, 0)},
+            **probe_rows[name], "tolerance": PROBE_BF16_TOL if name == "bf16" else "bit-equal",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": probe["times"][f"torch {name}"]["median"],
+            "library_call": "8 x torch.matmul (bf16)" if name == "bf16" else "8 x torch._int_mm, each cast to int8",
+        }
+        kernels.append(row)
+        log({"phase": "timing", "what": row["name"], "shape": list(x.shape), "tflops": ops / (k_ms * 1e9),
+             "bound_share": bound / k_ms, "peak_used": f"{name} {'989' if name == 'bf16' else '1979'} T/s",
              **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
-        del x, ws, bs, x_ncw, w_ncw
+        del x, w
 
     for segmented, t in flash_shapes.items():
         q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented)
@@ -690,7 +879,7 @@ def main() -> int:
         # device time per call (the kernel's own time), and the CUDA-event time
         # of one call, which includes the host's launch time when that is longer
         dev_ms = {name: device_ms(torch, fn) for name, fn in calls.items()}
-        call_ms = {name: time_ms(torch, fn) for name, fn in calls.items()}
+        call_ms = {name: time_ms(fn) for name, fn in calls.items()}
         k_host_us = host_us(torch, calls["kernel"])
         ms = {name: dev_ms[name] if dev_ms[name] is not None else call_ms[name]["median"] for name in calls}
         bound, bound_by, flops = flash_bound_ms(q, seg)
@@ -735,9 +924,9 @@ def main() -> int:
             return fa._backward_kernels(q, k, v, o, m, l, do, seg, scale)
 
         prof = device_profile(torch, kernel_bwd, n=N_TIMED)
-        call_ms = time_ms(torch, kernel_bwd)
+        call_ms = time_ms(kernel_bwd)
         lib_dev = device_ms(torch, library_bwd)
-        lib_ms = lib_dev if lib_dev is not None else time_ms(torch, library_bwd)["median"]
+        lib_ms = lib_dev if lib_dev is not None else time_ms(library_bwd)["median"]
         for part, kname in (("dkv", "flash_bwd_dkv_kernel"), ("dq", "flash_bwd_dq_kernel")):
             k_dev = sum(v_[0] for key, v_ in prof.items() if kname in key) if prof else None
 
@@ -745,7 +934,7 @@ def main() -> int:
                 return plain_bwd_part(torch, fa, part, q, k, v, o, m, l, do, seg, scale)
 
             p_dev = device_ms(torch, plain)
-            p_ms = p_dev if p_dev is not None else time_ms(torch, plain)["median"]
+            p_ms = p_dev if p_dev is not None else time_ms(plain)["median"]
             bound, bound_by, flops = flash_bwd_bound_ms(q, seg, part)
             k_ms = k_dev if k_dev else call_ms["median"]
             row = {

@@ -1,7 +1,8 @@
 """Build the CUDA sources under `csrc/` with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes `_build/<name>.<hash>.so`, where the hash
-covers the source and the flags, so an edited source is rebuilt and an
+covers the source, the shared `csrc/*.cuh` headers and the flags, so an
+edited source or header is rebuilt and an
 unchanged one is reused. All sources compile in parallel (one nvcc each).
 Nothing here runs at import time.
 """
@@ -38,7 +39,8 @@ def nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{src.stem}.{h}.so"
 
 

@@ -5,7 +5,8 @@ form it is proven equal to (`pack_small_channels=False`,
 `ups_impl="dilated"`): conv_pre k7, then per upsample leaky 0.1 ->
 transposed conv (padding (k-u)//2) -> MRF stage, then leaky 0.01 ->
 conv_post k7 -> tanh in f32. The MRF stages run through `ops/mrf.py`:
-the Hopper kernel for bf16 activations on the card. The TPU's
+on the card, the Hopper kernel of the activations' dtype (bf16, or f32
+when `compute_dtype` is None, the default). The TPU's
 space-to-depth packing, subpixel/phase strategies and serving tables
 are re-layouts for the TPU and are not carried over.
 """

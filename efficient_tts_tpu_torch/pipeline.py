@@ -10,8 +10,12 @@ feeds the HiFi-GAN V1 generator:
       vocoder; the tail beyond each utterance's length is masked.
 
 Every entry point runs on `device` ("cuda" by default) and raises without a
-card unless the caller passes device="cpu". f32 convolutions run without
-TF32, as the JAX reference computes them in full f32.
+card unless the caller passes device="cpu". With the default
+compute_dtype=None the decoder and vocoder run in f32, as the JAX package's
+do on any backend, and the vocoder's MRF stages take the f32 Hopper kernel;
+compute_dtype=torch.bfloat16 takes the bf16 one. f32 convolutions and
+products outside the kernels run without TF32, as the JAX reference
+computes them in full f32.
 """
 
 from __future__ import annotations
@@ -106,10 +110,11 @@ def synthesize_fixed(
     device="cuda",
 ):
     """Text -> (wav [B, t2*hop], wav_lengths [B], mel [B, t2, odim]) at a
-    static mel length t2, all on the device. `compute_dtype=torch.bfloat16`
-    runs the decoder and vocoder in bf16 (the alignment stays f32);
-    `output="pcm16"` quantizes to int16 on the device; `mrf_impl="plain"`
-    runs the MRF stages' plain PyTorch version instead of the kernel. For
+    static mel length t2, all on the device. The decoder and vocoder run in
+    f32 by default and in bf16 with `compute_dtype=torch.bfloat16` (the
+    alignment stays f32); the MRF stages take the Hopper kernel of that
+    dtype on the card, or their plain PyTorch version with
+    `mrf_impl="plain"`; `output="pcm16"` quantizes to int16 on the device. For
     an EFTS-Transformer with attn_impl "flash" or "auto", the decoder's
     attention runs the flash kernel on the card when t2 is a multiple of
     128, and its plain-PyTorch XLA branch otherwise."""

@@ -59,6 +59,12 @@ def flash_backward_work(b: int, h: int, t: int, dk: int, part: str, segmented: b
             (4 + n_out) * head + 3 * b * h * t * 4 + (2 * b * t * 4 if segmented else 0))
 
 
+def probe_work(m: int, repeat: int, elem_bytes: int, k: int = 128) -> tuple[float, float]:
+    """(operations, bytes) of the rate probe: [m, k] x [k, k] applied
+    `repeat` times per row, x and w read once and out written once."""
+    return 2.0 * m * k * k * repeat, (m * k + k * k + m * k) * elem_bytes
+
+
 def v1_taps():
     return [k for k in V1_KERNEL_SIZES for _ in range(V1_CONVS_PER_BRANCH)]
 
@@ -66,15 +72,24 @@ def v1_taps():
 def table(b: int = 16) -> list[dict]:
     rows = []
     taps = v1_taps()
-    for c, t in MRF_STAGES:
-        for name, peak, act, wb, vecs in (("K1 mrf_stage bf16", "bf16", 2, 2, 1),
-                                          ("K2 mrf_stage W8A8", "int8", 2, 1, 2),
-                                          ("K3 mrf_stage f32", "tf32", 4, 4, 1),
-                                          ("K3 mrf_stage f32", "fp32", 4, 4, 1)):
+    # the MRF stage kernels: K3 f32 runs f32 FMAs, so FP32's peak bounds it
+    for name, peak, act, wb, vecs in (("K1 mrf_stage bf16", "bf16", 2, 2, 1),
+                                      ("K2 mrf_stage W8A8", "int8", 2, 1, 2),
+                                      ("K3 mrf_stage f32", "fp32", 4, 4, 1)):
+        stage_rows = []
+        for c, t in MRF_STAGES:
             ops, nbytes = mrf_stage_work(b, t, c, taps, act, wb, vecs)
             ms, by = bound_ms(ops, nbytes, peak)
-            rows.append({"kernel": name, "shape": [b, t, c], "peak": peak, "ops": ops, "bytes": nbytes,
-                         "bound_ms": ms, "bound_by": by})
+            stage_rows.append({"kernel": name, "shape": [b, t, c], "peak": peak, "ops": ops, "bytes": nbytes,
+                               "bound_ms": ms, "bound_by": by})
+        rows += stage_rows
+        rows.append({"kernel": name, "shape": "the four V1 stages", "peak": peak,
+                     "bound_ms": sum(r["bound_ms"] for r in stage_rows)})
+    # K2 at the shape of bench/mrf_fused.py (scripts/bench_mrf_fused.py)
+    ops, nbytes = mrf_stage_work(b, 262144, 32, taps, 2, 1, 2)
+    ms, by = bound_ms(ops, nbytes, "int8")
+    rows.append({"kernel": "K2 mrf_stage W8A8", "shape": [b, 262144, 32], "peak": "int8", "ops": ops,
+                 "bytes": nbytes, "bound_ms": ms, "bound_by": by})
     for t, seg in ((512, False), (128, True)):
         ops, nbytes = flash_work(b, 4, t, 96, seg)
         ms, by = bound_ms(ops, nbytes, "tf32")
@@ -88,11 +103,11 @@ def table(b: int = 16) -> list[dict]:
             rows.append({"kernel": f"K4 flash backward {part}", "shape": [TRAIN_B, 4, t, 96], "segment_ids": seg,
                          "peak": "tf32", "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
     # the rate probe: [M, 128] x [128, 128], 8 products per tile (scripts/probe_int8_pallas.py)
-    m, k, n, repeat = 1 << 20, 128, 128, 8
+    m = 1 << 20
     for peak, elem in (("bf16", 2), ("int8", 1)):
-        ops, nbytes = 2.0 * m * k * n * repeat, (m * k + k * n + m * n) * elem
+        ops, nbytes = probe_work(m, 8, elem)
         ms, by = bound_ms(ops, nbytes, peak)
-        rows.append({"kernel": "K5 matmul rate probe", "shape": [m, k, n], "peak": peak, "ops": ops,
+        rows.append({"kernel": "K5 matmul rate probe", "shape": [m, 128, 128], "peak": peak, "ops": ops,
                      "bytes": nbytes, "bound_ms": ms, "bound_by": by})
     return rows
 

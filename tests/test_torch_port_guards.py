@@ -40,9 +40,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     expected = [m.name for m in pkgutil.walk_packages(efficient_tts_tpu_torch.__path__,
                                                       "efficient_tts_tpu_torch.")]
     assert n_modules == len(expected) >= 15
-    # the training slice's modules are among those imported
+    # the training slice's modules, the int8 ops and the benchmarks are among those imported
     for name in ("train.efts_train_step", "train.efts_trainer", "train.optim", "train.checkpoint",
-                 "losses.fastspeech", "utils.preemption"):
+                 "losses.fastspeech", "utils.preemption", "ops.mrf_int8", "ops.probe_matmul",
+                 "bench.mrf_fused", "bench.probe_int8"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 

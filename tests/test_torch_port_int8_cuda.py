@@ -1,0 +1,96 @@
+"""The Hopper W8A8 MRF kernel (K2) and the matmul rate probe (K5) against
+their plain versions, on the card.
+
+Marked `cuda`: skips on a host without an NVIDIA card (the CPU tests hold
+the plain versions against the JAX package). On the card it builds
+`csrc/mrf_stage_int8.cu` and `csrc/probe_matmul.cu`. Both kernels do the
+plain versions' arithmetic exactly: integer sums, and every f32 operation
+of K2's epilogue rounded as the plain version rounds it, so the results
+must be bit-equal (K5's bf16 mode sums in another order: relative RMS
+<= 1e-2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _stage(c, t, ks, dils, seed, device):
+    """bf16 x [2, t, c] and the quantized stage of seeded f32 weights."""
+    from efficient_tts_tpu_torch.ops.mrf import conv_order
+    from efficient_tts_tpu_torch.ops.mrf_int8 import quantize_weights
+
+    g = torch.Generator().manual_seed(seed)
+    ws = [(torch.randn((k, c, c), generator=g) / np.sqrt(k * c)) for k, _ in conv_order(ks, dils)]
+    bs = (0.1 * torch.randn((len(ws), c), generator=g)).to(device)
+    x = torch.randn((2, t, c), generator=g).to(device, torch.bfloat16)
+    wq, scales = quantize_weights(ws)
+    return x, [w.to(device) for w in wq], scales.to(device), bs, ws
+
+
+@pytest.mark.parametrize("c,t", [(32, 1000), (64, 333), (128, 64), (256, 71), (96, 130)])
+@pytest.mark.parametrize("ks,dils", [((3, 7, 11), ((1, 3, 5),) * 3), ((3,), ((1, 2),))])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_kernel_is_bit_equal_to_plain_version(device, c, t, ks, dils, static):
+    from efficient_tts_tpu_torch.ops import mrf_int8
+
+    x, wq, scales, bs, ws = _stage(c, t, ks, dils, seed=c + t, device=device)
+    act = None
+    if static:
+        act = mrf_int8.calibrate_act_scales(x, [w.to(device) for w in ws], bs, ks, dils)
+    mrf_int8.reset_launches()
+    out = mrf_int8.mrf_stage_int8(x, wq, scales, bs, ks, dils, act)
+    torch.cuda.synchronize()
+    expected = {("static" if static else "dynamic", c): len(wq)}
+    if not static:
+        expected["absmax", c] = 1
+    assert mrf_int8.launches == expected
+    ref = mrf_int8.mrf_stage_int8_reference(x, wq, scales, bs, ks, dils, act)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+def test_int8_kernel_rejects_what_it_does_not_take(device):
+    from efficient_tts_tpu_torch.ops import mrf_int8
+
+    ks, dils = (3,), ((1,),)
+    x, wq, scales, bs, _ = _stage(32, 64, ks, dils, seed=0, device=device)
+    with pytest.raises(TypeError):
+        mrf_int8.mrf_stage_int8(x.float(), wq, scales, bs, ks, dils)
+    with pytest.raises(TypeError):
+        mrf_int8.mrf_stage_int8(x, [w.to(torch.bfloat16) for w in wq], scales, bs, ks, dils)
+    with pytest.raises(TypeError):
+        mrf_int8.mrf_stage_int8(x, wq, scales, bs, ks, dils, torch.ones(3, device=device))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("m", [16, 4096, 3000 * 16])
+def test_probe_kernel_matches_plain_version(device, mode, m):
+    from efficient_tts_tpu_torch.ops import probe_matmul as pm
+
+    rng = np.random.default_rng(m)
+    if mode == "int8":
+        x, w = rng.integers(-3, 3, (m, 128)), rng.integers(-3, 3, (128, 128))
+        dt = torch.int8
+    else:
+        x, w = rng.standard_normal((m, 128)), 0.05 * rng.standard_normal((128, 128))
+        dt = torch.bfloat16
+    x, w = (torch.from_numpy(a).to(device).to(dt).contiguous() for a in (x, w))
+    pm.reset_launches()
+    out = pm.probe_matmul(x, w)
+    torch.cuda.synchronize()
+    assert pm.launches == {mode: 1}
+    ref = pm.probe_matmul_reference(x, w)
+    if mode == "int8":
+        assert torch.equal(out, ref)
+    else:
+        err = (out.float() - ref.float()).square().mean().sqrt()
+        assert float(err / ref.float().square().mean().sqrt()) <= 1e-2

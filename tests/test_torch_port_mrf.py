@@ -104,6 +104,20 @@ def test_reference_matches_im2col_pallas_kernel():
     _assert_bf16_close(ref, out, 2**-4, 1e-2)
 
 
+@pytest.mark.parametrize("b,c,t_tile", [(1, 32, 128), (2, 64, 64)])
+def test_f32_reference_matches_im2col_pallas_kernel(b, c, t_tile):
+    """K3 (`ops/pallas/mrf.py:mrf_stage`) in f32, the mode the port's f32
+    kernel replaces, at T=256 in 2 and 4 tiles: no rounding but the f32
+    sums' order (rtol 1e-5)."""
+    blocks = _blocks(c, seed=c + 1)
+    x = np.random.default_rng(6).standard_normal((b, 256, c)).astype(np.float32)
+    w3, b3 = zip(*[pack_resblock_weights(blocks[j], KS[j], c) for j in range(3)])
+    out = np.asarray(pallas_mrf_stage(jnp.asarray(x), w3, b3, KS, DILS, t_tile=t_tile, interpret=True))
+    ws, bs = _port_weights(blocks, torch.float32)
+    ref = mrf.mrf_stage_reference(torch.from_numpy(x), ws, bs, KS, DILS).numpy()
+    np.testing.assert_allclose(ref, out, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("c", [128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reference_matches_averaged_resblock1(c, dtype):
@@ -147,3 +161,34 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError, match="cpu or cuda"):
         mrf.mrf_stage(meta, ws, bs, KS, DILS)
 
+
+
+def test_check_takes_bf16_or_f32_with_weights_of_the_same_dtype():
+    """The card's checks (they run on any device): bf16 and f32 activations
+    pass with weights of their dtype; mixed dtypes and other types raise."""
+    blocks = _blocks(32, seed=9)
+    x = torch.zeros((1, 64, 32))
+    for dt in (torch.float32, torch.bfloat16):
+        ws, bs = _port_weights(blocks, dt)
+        mrf._check(x.to(dt), ws, bs, KS, DILS)
+    ws32, bs = _port_weights(blocks, torch.float32)
+    ws16, _ = _port_weights(blocks, torch.bfloat16)
+    for xx, ws in ((x, ws16), (x.to(torch.bfloat16), ws32), (x.half(), [w.half() for w in ws32])):
+        with pytest.raises(TypeError):
+            mrf._check(xx, ws, bs, KS, DILS)
+    mrf.reset_launches()
+    out = mrf.mrf_stage(x + 1, ws32, bs, KS, DILS)
+    assert out.dtype == torch.float32 and mrf.launches == {}
+
+
+@pytest.mark.parametrize("c", [32, 96, 256])
+def test_stage_weights_are_aligned_views_in_both_dtypes(c):
+    """The kernels take each conv's weight in place: `conv_weights` gives
+    16-byte aligned views of the stage's f32 and bf16 buffers."""
+    from efficient_tts_tpu_torch.models.hifigan import MRFStage
+
+    stage = MRFStage(c, KS, DILS)
+    for dt, buf in ((torch.float32, stage.weight), (torch.bfloat16, stage.weight_bf16)):
+        ws = stage.conv_weights(dt)
+        assert len(ws) == 18 and all(w.dtype == dt and w.is_contiguous() for w in ws)
+        assert all(w.data_ptr() % 16 == 0 and w.untyped_storage().data_ptr() == buf.data_ptr() for w in ws)
