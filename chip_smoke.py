@@ -5,7 +5,9 @@
 
 Phases, each of which raises on failure:
   1. device: needs torch.cuda; prints `nvidia-smi` name and power limit;
-  2. build: compiles `efficient_tts_tpu_torch/csrc/*.cu` with nvcc;
+  2. build: compiles `efficient_tts_tpu_torch/csrc/*.cu` with nvcc, and
+     reads the MRF library's SASS (cuobjdump): wgmma (HGMMA) and TMA
+     (UTMALDG) instructions, and no mma.sync (HMMA);
   3. kernel vs plain version: every MRF stage of the V1 generator (C =
      256/128/64/32 at its main-path length for B=16, T2=512) through the
      Hopper kernel and through `mrf_stage_reference`, on the same bf16
@@ -17,7 +19,8 @@ Phases, each of which raises on failure:
      ([64, 4, 512, 96] without and with ragged segment ids, [64, 4, 128,
      96] with them) against `torch.autograd.grad` through
      `flash_attention_reference`; the f32 MRF kernel at the four V1 stage
-     shapes against `mrf_stage_reference` (f32, TF32 off); the W8A8 MRF
+     shapes (3xTF32 products) against `mrf_stage_reference` (f32, TF32
+     off); the W8A8 MRF
      kernel bit for bit against `mrf_stage_int8_reference` at [16, 65536,
      64], [16, 131072, 32] and the bench's [16, 262144, 32], with dynamic
      and with static activation scales; the matmul probe at [2^20, 128]
@@ -59,8 +62,9 @@ Phases, each of which raises on failure:
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
      time by kernel and idle share from torch.profiler, and each MRF stage
-     kernel beside its bound, its plain version and the 18 cuDNN convs of
-     the stage, in bf16 and in f32; the f32 `synthesize_fixed` of both
+     kernel beside its bound (f32: under the 3xTF32 peak and, for the
+     record, FP32's), its plain version and the 18 cuDNN convs of the
+     stage, in bf16 and in f32; the f32 `synthesize_fixed` of both
      models; the W8A8 kernel beside K1 and the cuDNN bf16 stage at the
      bench's shape, and its plain version; the probe beside its plain
      version and the library's chains. The flash kernels at
@@ -132,6 +136,8 @@ YAML_OPTIMIZER = {
     "scheduler_type": "WarmupLR",
     "scheduler_params": {"warmup_steps": 4000},
 }
+# the MRF kernels' names (csrc/mrf_stage.cu), as the profiler reports them
+MRF_KERNELS = {"bf16": "mrf_conv_wgmma_bf16_kernel", "f32": "mrf_conv_wgmma_tf32x3_kernel"}
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -199,6 +205,18 @@ def host_us(torch, fn, n=50):
     return (t1 - t0) / n * 1e6
 
 
+def sass_counts(path):
+    """Counts of the wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
+    FFMA instructions in a built library's SASS (cuobjdump -sass)."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA", "FFMA")}
+
+
 def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes, dtype=None):
     """Seeded activations and unit-gain weights (std 1/sqrt(k*C)), so every
     conv of the chain moves the output; bf16 unless `dtype` says otherwise."""
@@ -214,11 +232,13 @@ def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes, dtype=Non
 
 
 def stage_bound_ms(c, t, order, kind="bf16"):
-    """The stage's bound: "bf16" (K1), "fp32" (K3 f32: f32 values, FP32's
-    peak) or "int8" (K2: bf16 activations, int8 weights with f32 scales)."""
+    """The stage's bound: "bf16" (K1), "tf32x3" (K3 f32: f32 values, a third
+    of the TF32 peak), "fp32" (the same work at FP32's peak, the bound of
+    the earlier FFMA kernel) or "int8" (K2: bf16 activations, int8 weights with
+    f32 scales)."""
     from efficient_tts_tpu_torch.utils.roofline import bound_ms, mrf_stage_work
 
-    act, wb, vecs = {"bf16": (2, 2, 1), "fp32": (4, 4, 1), "int8": (2, 1, 2)}[kind]
+    act, wb, vecs = {"bf16": (2, 2, 1), "tf32x3": (4, 4, 1), "fp32": (4, 4, 1), "int8": (2, 1, 2)}[kind]
     ops, nbytes = mrf_stage_work(B, t, c, [k for k, _ in order], act_bytes=act, weight_bytes=wb, per_conv_vectors=vecs)
     return (*bound_ms(ops, nbytes, kind), ops)
 
@@ -409,6 +429,10 @@ def main() -> int:
     for name, info in built.items():
         print(f"--- nvcc {name} ---\n{info['log']}", file=sys.stderr)
     log({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sorted(built)})
+    sass = sass_counts(built["mrf_stage"]["path"])
+    log({"phase": "build", "what": "mrf_stage SASS", **sass})
+    if sass["HGMMA"] == 0 or sass["UTMALDG"] == 0 or sass["HMMA"] != 0:
+        raise AssertionError(f"the MRF library is not wgmma fed by TMA: {sass}")
 
     voc_cfg = HiFiGANConfig()
     efts_cfg = EftsCNNConfig(num_symbols=76, dropout_rate=0.0, use_masking=True)
@@ -423,7 +447,7 @@ def main() -> int:
     kernel_rows = {}
     for c, t in stages:
         x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds)
-        out = mrf.mrf_stage(x, ws, bs, ks, ds)
+        out = mrf.mrf_stage(x, mrf.kernel_weights(ws), bs, ks, ds)
         torch.cuda.synchronize()
         stats = err_stats(out, mrf.mrf_stage_reference(x, ws, bs, ks, ds))
         log({"phase": "kernel_vs_plain", "channels": c, "shape": [B, t, c], **stats, "tolerance": STAGE_TOL})
@@ -476,7 +500,7 @@ def main() -> int:
     for c, t in stages:
         x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds,
                                         dtype=torch.float32)
-        out = mrf.mrf_stage(x, ws, bs, ks, ds)
+        out = mrf.mrf_stage(x, mrf.kernel_weights(ws), bs, ks, ds)
         torch.cuda.synchronize()
         stats = err_stats(out, mrf.mrf_stage_reference(x, ws, bs, ks, ds))
         log({"phase": "kernel_vs_plain", "kernel": "mrf_stage_f32", "channels": c, "shape": [B, t, c], **stats,
@@ -756,9 +780,13 @@ def main() -> int:
              "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"]})
         prof = device_profile(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
                                                                        compute_dtype=cdt))
-        summary = (profile_summary(prof, ms, ("mrf_conv_kernel", "mrf_conv_f32_kernel", "flash_fwd_kernel"))
+        summary = (profile_summary(prof, ms, (*MRF_KERNELS.values(), "flash_fwd_kernel"))
                    if prof else {"device_busy_ms": "not measured"})
         log({"phase": "profile", "what": "synthesize_fixed", "model": name, "dtype": dtype, **summary})
+        # every MRF conv of the 4 stages went through the kernel of its dtype
+        if prof and summary[MRF_KERNELS[dtype] + "_launches"] != 18 * len(stages):
+            raise AssertionError(f"the profile shows {summary[MRF_KERNELS[dtype] + '_launches']} MRF kernel "
+                                 f"launches per synthesis, expected {18 * len(stages)}")
 
     time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms")
     time_path("efts_transformer", tr, *tr_batches[0], tr_plain, {}, "plain_attention_ms")
@@ -780,18 +808,27 @@ def main() -> int:
     del state_k, state_p, state_d, step_k, step_p, step_d, model_k, model_p
 
     kernels = []
-    # the MRF stage kernels at the V1 stage shapes: bf16 (K1) and f32 (K3)
+    # the MRF stage kernels at the V1 stage shapes: bf16 (K1) and f32 (K3),
+    # their weights prepared once (TF32 split, TMA descriptors) as the
+    # generator prepares them
     for dtype, rows, tol in ((bf16, kernel_rows, STAGE_TOL), (torch.float32, f32_rows, F32_STAGE_TOL)):
         f32 = dtype == torch.float32
+        dname = "f32" if f32 else "bf16"
         for c, t in stages:
             x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds,
                                             dtype=dtype)
-            t_k = time_ms(lambda: mrf.mrf_stage(x, ws, bs, ks, ds))
+            kw = mrf.kernel_weights(ws)
+            mrf.reset_launches()
+            mrf.mrf_stage(x, kw, bs, ks, ds)
+            per_stage = mrf.launches.get((dname, c), 0)
+            if per_stage != len(order):
+                raise AssertionError(f"one {dname} stage at C={c} launched {mrf.launches}, expected {len(order)}")
+            t_k = time_ms(lambda: mrf.mrf_stage(x, kw, bs, ks, ds))
             k_ms = t_k["median"]
             p_ms = time_ms(lambda: mrf.mrf_stage_reference(x, ws, bs, ks, ds))["median"]
             lib_ms = time_ms(cudnn_convs(torch, x, ws, bs, order))["median"]
-            bound, bound_by, flops = stage_bound_ms(c, t, order, "fp32" if f32 else "bf16")
-            key = ("f32" if f32 else "bf16", c)
+            bound, bound_by, flops = stage_bound_ms(c, t, order, "tf32x3" if f32 else "bf16")
+            key = (dname, c)
             by_path = ({name: f32_launches[name].get(key, 0) for name in f32_launches} if f32
                        else {"efts_cnn": launches.get(key, 0), "efts_transformer": tr_launches.get(key, 0)})
             row = {
@@ -799,17 +836,24 @@ def main() -> int:
                 "source": "efficient_tts_tpu_torch/csrc/mrf_stage.cu",
                 "replaces": ("efficient_tts_tpu/ops/pallas/mrf.py:203" if f32
                              else "efficient_tts_tpu/ops/pallas/mrf_packed.py:284"),
-                "launches": by_path["efts_cnn"], "launches_by_path": by_path,
+                "launches": by_path["efts_cnn"], "launches_by_path": by_path, "launches_per_stage": per_stage,
                 **rows[c], "tolerance": tol,
+                "precision": "3xTF32 products, f32 sums" if f32 else "bf16 operands, f32 sums, bf16 rounding points",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
                 "library_call": f"the stage's 18 F.conv1d (cuDNN) in {'f32, TF32 off' if f32 else 'bf16'}",
             }
+            peaks = {"tf32x3": "TF32/3 165 TFLOP/s"} if f32 else {"bf16": "bf16 989 TFLOP/s"}
+            if f32:
+                row["bound_ms_fp32"] = stage_bound_ms(c, t, order, "fp32")[0]
+                peaks["fp32"] = "FP32 67 TFLOP/s"
             kernels.append(row)
             log({"phase": "timing", "what": row["name"], "shape": [B, t, c], "tflops": flops / (k_ms * 1e9),
                  "bound_share": bound / k_ms, "ms_p25": t_k["p25"], "ms_p75": t_k["p75"], "n": t_k["n"],
-                 "peak_used": "FP32 67 TFLOP/s" if f32 else "bf16 989 TFLOP/s",
-                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
-            del x, ws, bs
+                 "peak_used": peaks, "vs_library": k_ms / lib_ms,
+                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "launches_per_stage")},
+                 **({"bound_ms_fp32": row["bound_ms_fp32"]} if f32 else {})})
+            del x, ws, bs, kw
 
     # the W8A8 kernel at the bench's shape: its times from bench.mrf_fused's
     # run above, beside K1 and the cuDNN bf16 stage there; its plain version

@@ -79,9 +79,10 @@ def versions(st: dict) -> dict:
     x_ncw = x.transpose(1, 2).contiguous()
     w_ncw = [w.permute(1, 2, 0).contiguous() for w in st["w_bf16"]]
     b_bf16 = biases.to(torch.bfloat16)
+    w_kernel = mrf.kernel_weights(st["w_bf16"])  # the TMA descriptors, made once as the generator does
     return {
         "cudnn bf16": lambda: cudnn_stage(x_ncw, w_ncw, b_bf16, st["order"]).transpose(1, 2),
-        "kernel bf16": lambda: mrf.mrf_stage(x, st["w_bf16"], biases, KS, DILS),
+        "kernel bf16": lambda: mrf.mrf_stage(x, w_kernel, biases, KS, DILS),
         "kernel int8": lambda: mrf_int8.mrf_stage_int8(x, wq, scales, biases, KS, DILS),
         "kernel int8-static": lambda: mrf_int8.mrf_stage_int8(x, wq, scales, biases, KS, DILS, st["act_scales"]),
     }

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from efficient_tts_tpu_torch.nn.layers import Conv1d, ConvTranspose1d, leaky_relu
-from efficient_tts_tpu_torch.ops.mrf import conv_order, mrf_stage, mrf_stage_reference
+from efficient_tts_tpu_torch.ops.mrf import conv_order, kernel_weights, mrf_stage, mrf_stage_reference
 
 LRELU_SLOPE = 0.1
 
@@ -49,9 +49,12 @@ class HiFiGANConfig:
 
 
 class MRFStage(nn.Module):
-    """The weights of one MRF stage in the kernel's layout: every conv's
+    """The weights of one MRF stage in the kernels' layout: every conv's
     [k, C_out, C_in] weight back to back in one flat f32 buffer, a bf16 copy
-    made once at load time, and f32 biases [n_convs, C]."""
+    made once at load time, and f32 biases [n_convs, C]. On the card each
+    dtype's `KernelWeights` (the bf16 views, or the f32 weights' TF32 split,
+    with their TMA descriptors) is made on first use and kept until the
+    weights move or change."""
 
     def __init__(self, channels: int, kernel_sizes, dilation_sizes):
         super().__init__()
@@ -62,6 +65,7 @@ class MRFStage(nn.Module):
         self.register_buffer("weight", torch.zeros(n))
         self.register_buffer("weight_bf16", torch.zeros(n, dtype=torch.bfloat16))
         self.register_buffer("bias", torch.zeros(len(self.shapes), channels))
+        self._kernel_weights = {}
 
     @torch.no_grad()
     def load(self, weights, biases) -> None:
@@ -75,9 +79,25 @@ class MRFStage(nn.Module):
         flat = self.weight_bf16 if dtype == torch.bfloat16 else self.weight.to(dtype)
         return [w.view(s) for w, s in zip(flat.split([k * a * b for k, a, b in self.shapes]), self.shapes)]
 
+    def kernel_weights(self, dtype):
+        """The stage's `KernelWeights` for `dtype`, made again whenever the
+        weights' buffer moves or changes in place (`load`, `load_state_dict`
+        and `copy_` each bump its version counter)."""
+        ws = self.conv_weights(dtype)
+        key = (dtype, ws[0].device, ws[0].data_ptr(), ws[0]._version)
+        kw = self._kernel_weights.get(dtype)
+        if kw is None or kw[0] != key:
+            kw = self._kernel_weights[dtype] = (key, kernel_weights(ws))
+        return kw[1]
+
     def forward(self, x, impl: str = "kernel"):
-        fn = {"kernel": mrf_stage, "plain": mrf_stage_reference}[impl]
-        return fn(x, self.conv_weights(x.dtype), self.bias, self.kernel_sizes, self.dilation_sizes)
+        if impl == "plain":
+            return mrf_stage_reference(x, self.conv_weights(x.dtype), self.bias, self.kernel_sizes,
+                                       self.dilation_sizes)
+        if impl != "kernel":
+            raise ValueError(f"mrf_impl must be 'kernel' or 'plain', got {impl!r}")
+        ws = self.kernel_weights(x.dtype) if x.device.type == "cuda" else self.conv_weights(x.dtype)
+        return mrf_stage(x, ws, self.bias, self.kernel_sizes, self.dilation_sizes)
 
 
 class HiFiGANGenerator(nn.Module):

@@ -6,18 +6,24 @@ slope 0.1 and zero padding at the ends of [0, T). Counterpart of the TPU
 kernels `efficient_tts_tpu/ops/pallas/mrf_packed.py:mrf_stage_packed`
 (bf16 mode) and `ops/pallas/mrf.py:mrf_stage` (bf16 and f32).
 
-Activations are bf16 or f32, with weights of the same dtype. Weights are in
-the kernels' layout: one [k, C_out, C_in] tensor per conv, in the order
-branch by branch, per dilation the dilated conv then the d=1 conv (the order
-of `mrf_packed.stage_plan`); biases are f32 [n_convs, C]. Values are rounded
+Activations are bf16 or f32, with weights of the same dtype. Weights are
+one [k, C_out, C_in] tensor per conv, in the order branch by branch, per
+dilation the dilated conv then the d=1 conv (the order of
+`mrf_packed.stage_plan`); biases are f32 [n_convs, C]. Values are rounded
 to the activation dtype after each conv's bias, each residual add, each
 partial branch sum and the final / n_kernels, where the Pallas kernels
 round (in f32 those roundings are no-ops).
+
+On the card the weights go in as `KernelWeights` only: the kernel's layout
+of each conv (bf16 as it is; f32 split into TF32 hi and lo, [2, k, C_out,
+C_in], for the 3xTF32 products) and its TMA descriptor, made once per
+weight (`kernel_weights`). `models/hifigan.py:MRFStage` caches its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -87,15 +93,70 @@ def mrf_stage_reference(x, weights, biases, kernel_sizes, dilation_sizes):
     return stage_chain(x, lambda a, i, d: conv_plain(a, weights[i], biases[i], d, x.dtype), dilation_sizes)
 
 
+def round_tf32(x):
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as cvt.rna.tf32.f32 rounds, kept as f32 with the low 13 bits 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32x3(w):
+    """An f32 weight [k, C_out, C_in] -> [2, k, C_out, C_in]: hi =
+    tf32(w), then lo = tf32(w - hi), the f32 kernel's 3xTF32 operands
+    (hi*lo + lo*hi + hi*hi keeps w to about 2^-22 relative)."""
+    hi = round_tf32(w)
+    return torch.stack([hi, round_tf32(w - hi)]).contiguous()
+
+
+@dataclasses.dataclass
+class KernelWeights:
+    """A stage's weights as its kernel takes them, made once by
+    `kernel_weights`: `weights` the [k, C, C] tensors (the plain version's),
+    `kernel` their kernel layout (bf16: the same tensors; f32: the TF32
+    split), and on the card `maps`, each conv's 128-byte TMA descriptor,
+    which holds the address of its `kernel` tensor."""
+
+    weights: list
+    kernel: list
+    maps: list | None = None
+
+
+def kernel_weights(weights) -> KernelWeights:
+    """Prepare `weights` (one [k, C, C] tensor per conv, bf16 or f32) for the
+    kernels: f32 weights are split into TF32 hi and lo here. On a CUDA
+    device the TMA descriptors are encoded too; on the CPU `maps` stays
+    None."""
+    weights = list(weights)
+    f32 = bool(weights) and weights[0].dtype == torch.float32
+    kernel = [split_tf32x3(w) for w in weights] if f32 else weights
+    kw = KernelWeights(weights, kernel)
+    if weights and weights[0].device.type == "cuda":
+        lib = _lib()
+        kw.maps = []
+        for w, wk in zip(weights, kernel):
+            k, c = w.shape[0], w.shape[-1]
+            if not wk.is_contiguous() or tuple(wk.shape[-2:]) != (c, c) or wk.data_ptr() % 16:
+                raise ValueError(f"kernel weight must be contiguous [..., {c}, {c}], 16-byte aligned")
+            buf = ctypes.create_string_buffer(128)
+            rc = lib.mrf_weight_map(buf, wk.data_ptr(), int(w.dtype == torch.float32), k, c)
+            if rc != 0:
+                raise RuntimeError(f"mrf_weight_map failed: CUDA error {rc}")
+            kw.maps.append(buf)
+    return kw
+
+
 def _lib():
     from efficient_tts_tpu_torch import _build
 
     lib = _build.load("mrf_stage")
+    p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.mrf_conv, lib.mrf_conv_f32):
         if fn.argtypes is None:
-            p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
             fn.restype = ctypes.c_int
+    if lib.mrf_weight_map.argtypes is None:
+        lib.mrf_weight_map.argtypes = [p, p, i, i, i]
+        lib.mrf_weight_map.restype = ctypes.c_int
     return lib
 
 
@@ -151,13 +212,19 @@ def stage_launches(x, n_branches, dilation_sizes, launch):
 
 
 def mrf_stage(x, weights, biases, kernel_sizes, dilation_sizes):
-    """One MRF stage. A CPU tensor goes through `mrf_stage_reference`; a CUDA
-    tensor through the Hopper kernel of its dtype (bf16: mma.sync with f32
-    accumulation; f32: f32 FMAs), 18 launches for V1, or it raises."""
+    """One MRF stage. `weights` is the `KernelWeights` of [k, C, C] tensors of
+    x's dtype; on the CPU the list of tensors does as well. A CPU tensor goes
+    through `mrf_stage_reference`; a CUDA tensor through the Hopper kernel of
+    its dtype (wgmma fed by a TMA weight ring; bf16 with f32 accumulation,
+    f32 as 3xTF32 products), 18 launches for V1, or it raises."""
+    kw = weights if isinstance(weights, KernelWeights) else None
     if x.device.type == "cpu":
-        return mrf_stage_reference(x, weights, biases, kernel_sizes, dilation_sizes)
+        return mrf_stage_reference(x, weights if kw is None else kw.weights, biases, kernel_sizes, dilation_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage runs on cpu or cuda tensors, got {x.device}")
+    if kw is None or kw.maps is None:
+        raise TypeError("on the card mrf_stage takes `kernel_weights(weights)` made from CUDA tensors")
+    weights = kw.weights
     _check(x, weights, biases, kernel_sizes, dilation_sizes)
     name, entry = _ENTRY[x.dtype]
     fn = getattr(_lib(), entry)
@@ -167,9 +234,8 @@ def mrf_stage(x, weights, biases, kernel_sizes, dilation_sizes):
     n_branches = len(kernel_sizes)
 
     def launch(src, i, d, res, dst, flags):
-        rc = fn(src.data_ptr(), weights[i].data_ptr(), biases[i].data_ptr(),
-                res.data_ptr() if res is not None else None, dst.data_ptr(),
-                b, t, c, weights[i].shape[0], d, flags, n_branches, slope, stream)
+        rc = fn(kw.maps[i], src.data_ptr(), biases[i].data_ptr(), res.data_ptr() if res is not None else None,
+                dst.data_ptr(), b, t, c, weights[i].shape[0], d, flags, n_branches, slope, stream)
         if rc != 0:
             raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
         launches[name, c] = launches.get((name, c), 0) + 1
