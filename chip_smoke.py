@@ -7,7 +7,9 @@ Phases, each of which raises on failure:
   1. device: needs torch.cuda; prints `nvidia-smi` name and power limit;
   2. build: compiles `efficient_tts_tpu_torch/csrc/*.cu` with nvcc, and
      reads the MRF library's SASS (cuobjdump): wgmma (HGMMA) and TMA
-     (UTMALDG) instructions, and no mma.sync (HMMA);
+     (UTMALDG) instructions, and no mma.sync (HMMA); and the flash
+     library's SASS function by function: the backward's dkv and dq
+     kernels (every head-width instantiation) hold HGMMA and no HMMA;
   3. kernel vs plain version: every MRF stage of the V1 generator (C =
      256/128/64/32 at its main-path length for B=16, T2=512) through the
      Hopper kernel and through `mrf_stage_reference`, on the same bf16
@@ -58,6 +60,13 @@ Phases, each of which raises on failure:
         kernel with dynamic and static scales, and the cuDNN bf16 stage at
         [16, 262144, 32]) and `bench.probe_int8.main` (the probe in bf16 and
         int8 beside the library's chains), once each;
+     g. narrow generators: EFTS-CNN `synthesize_fixed` at T2=512 into a
+        V2-width HiFi-GAN (128 initial channels, stages 64/32/16/8) and into
+        the narrow one of the serving tests (32, stages 16/8/4/2), bf16 and
+        f32: the stages below 32 channels or between multiples of 32 run
+        the MRF kernels at the next multiple of 32 (launch counts by the
+        width the kernel ran at), and the wav against the same path with
+        `mrf_impl="plain"` within the MRF bounds of 4a and 4e;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -72,8 +81,9 @@ Phases, each of which raises on failure:
      (forward, and its backward for the backward kernels) are timed by
      their device time (torch.profiler, 20 calls), since one call's
      CUDA-event time there is mostly the host's launch time, which is
-     printed beside it; bounds from `efficient_tts_tpu_torch/utils/
-     roofline.py`;
+     printed beside it: each backward kernel's row is its own device time
+     from the profile, which must name it; bounds from
+     `efficient_tts_tpu_torch/utils/roofline.py`;
   6. a `{"kernels": [...]}` line, then the card line, then the last line
      `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
@@ -138,6 +148,11 @@ YAML_OPTIMIZER = {
 }
 # the MRF kernels' names (csrc/mrf_stage.cu), as the profiler reports them
 MRF_KERNELS = {"bf16": "mrf_conv_wgmma_bf16_kernel", "f32": "mrf_conv_wgmma_tf32x3_kernel"}
+# the flash kernels' names (csrc/flash_attention.cu), as the profiler and
+# cuobjdump report them
+FLASH_KERNELS = {"fwd": "flash_fwd_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel", "dq": "flash_bwd_dq_wgmma_kernel"}
+# HiFi-GAN widths below V1's: the V2 generator's and the serving tests' narrow one
+NARROW_VOCODERS = {"hifigan_v2": 128, "hifigan_narrow": 32}
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -205,16 +220,29 @@ def host_us(torch, fn, n=50):
     return (t1 - t0) / n * 1e6
 
 
-def sass_counts(path):
-    """Counts of the wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
-    FFMA instructions in a built library's SASS (cuobjdump -sass)."""
-    import re
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
+
+
+def read_sass(path):
+    """A built library's SASS, as cuobjdump -sass prints it."""
     import shutil
     import subprocess
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA", "FFMA")}
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+
+
+def op_counts(sass):
+    """Counts of the wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
+    FFMA instructions in SASS text."""
+    import re
+
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
+def sass_by_function(path):
+    """{mangled function name: `op_counts` of its SASS} of a built library."""
+    return {part.split("\n", 1)[0].strip(): op_counts(part) for part in read_sass(path).split("Function :")[1:]}
 
 
 def stage_inputs(torch, c, t, seed, dev, kernel_sizes, dilation_sizes, dtype=None):
@@ -429,10 +457,19 @@ def main() -> int:
     for name, info in built.items():
         print(f"--- nvcc {name} ---\n{info['log']}", file=sys.stderr)
     log({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sorted(built)})
-    sass = sass_counts(built["mrf_stage"]["path"])
+    sass = op_counts(read_sass(built["mrf_stage"]["path"]))
     log({"phase": "build", "what": "mrf_stage SASS", **sass})
     if sass["HGMMA"] == 0 or sass["UTMALDG"] == 0 or sass["HMMA"] != 0:
         raise AssertionError(f"the MRF library is not wgmma fed by TMA: {sass}")
+    # the flash library function by function: the backward kernels are wgmma
+    # (HGMMA) with no mma.sync (HMMA) left; the forward is mma.sync
+    flash_sass = sass_by_function(built["flash_attention"]["path"])
+    for part in ("fwd", "dkv", "dq"):
+        fns = {name: c for name, c in flash_sass.items() if FLASH_KERNELS[part] in name}
+        log({"phase": "build", "what": f"flash_attention SASS, {FLASH_KERNELS[part]}", "functions": len(fns),
+             **{op: [c[op] for c in fns.values()] for op in SASS_OPS}})
+        if part != "fwd" and (len(fns) != 4 or any(c["HGMMA"] == 0 or c["HMMA"] != 0 for c in fns.values())):
+            raise AssertionError(f"the flash {part} kernels are not 4 wgmma functions free of mma.sync: {fns}")
 
     voc_cfg = HiFiGANConfig()
     efts_cfg = EftsCNNConfig(num_symbols=76, dropout_rate=0.0, use_masking=True)
@@ -765,6 +802,42 @@ def main() -> int:
     if probe_launches != {"bf16": bench_calls, "int8": bench_calls}:
         raise AssertionError(f"bench.probe_int8 launched {probe_launches}")
 
+    # 4g. narrow generators: EFTS-CNN into the V2-width and the narrow
+    # vocoder, bf16 and f32; stages whose width is not a multiple of 32 run
+    # the MRF kernels padded to the next one
+    narrow_launches = {}
+    for vname, c0 in NARROW_VOCODERS.items():
+        ncfg = dataclasses.replace(voc_cfg, upsample_initial_channel=c0)
+        nvoc = compat.hifigan_generator_from_jax(init.init_generator(4, ncfg), ncfg, device="cuda")
+        widths = [c0 // 2 ** (i + 1) for i in range(len(ncfg.upsample_rates))]
+        for cdt, dname in ((bf16, "bf16"), (None, "f32")):
+            def synth(impl="kernel"):
+                return pipeline.synthesize_fixed(efts, nvoc, *batches[0], T2, compute_dtype=cdt, mrf_impl=impl)
+
+            mrf.reset_launches()
+            wav, wl, mel = synth()
+            torch.cuda.synchronize()
+            got = narrow_launches[vname, dname] = dict(mrf.launches)
+            expected = {}
+            for c in widths:
+                key = (dname, mrf.kernel_channels(c))
+                expected[key] = expected.get(key, 0) + 18
+            check_fixed(torch, wav, mel, T2, hop, efts_cfg.odim)
+            wav_plain, wl_plain, _ = synth("plain")
+            stats = err_stats(wav, wav_plain)
+            if dname == "bf16":
+                tol, ok = WAV_TOL, within(stats, WAV_TOL)
+            else:
+                tol = F32_WAV_TOL
+                ok = stats["max_abs_err"] <= tol["max_abs"] and stats["rel_rms"] <= tol["rel_rms"]
+            log({"phase": "main_path_vs_plain_mrf", "model": "efts_cnn", "vocoder": vname, "widths": widths,
+                 "dtype": dname, "t2": T2, "mrf_launches": keyed(got), "expected": keyed(expected), **stats,
+                 "tolerance": tol, "ms": time_ms(synth)["median"], "plain_mrf_ms": time_ms(lambda: synth("plain"))["median"]})
+            if got != expected or not torch.equal(wl, wl_plain) or not ok:
+                raise AssertionError(f"{vname} in {dname}: launches {got} (expected {expected}), {stats}")
+            del wav, wav_plain, mel
+        del nvoc
+
     # 5. timing
     def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16):
         """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
@@ -796,7 +869,7 @@ def main() -> int:
 
     # the training step after warmup: the kernel path, the plain attention and
     # the published yaml's dropout (each state keeps training as it is timed)
-    flash_names = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    flash_names = tuple(FLASH_KERNELS.values())
     for name, (state, step, gen) in {"flash": (state_k, step_k, None), "flash_plain": (state_p, step_p, None),
                                      "dropout_0.1": (state_d, step_d, drop_gen)}.items():
         t_step = time_ms(lambda: step(state, batch, gen))
@@ -805,6 +878,13 @@ def main() -> int:
         log({"phase": "timing", "what": "train_step", "attention": name, "B": TRAIN_B, "T1": T1_TR,
              "T2": TRAIN_T2, "dtype": "f32", "ms": t_step["median"], "ms_p25": t_step["p25"],
              "ms_p75": t_step["p75"], "n": t_step["n"], "steps_done": state["step"], **summary})
+        # the kernel path's step runs each flash kernel once per attention call
+        want = n_t1 + n_t2 if name == "flash" else 0
+        if prof and any(summary[k + "_launches"] != want for k in flash_names):
+            raise AssertionError(f"the {name} step's profile shows flash launches "
+                                 f"{ {k: summary[k + '_launches'] for k in flash_names} }, expected {want} each")
+        if name == "flash" and not prof:
+            raise AssertionError("the profiler saw no device time in the flash training step")
     del state_k, state_p, state_d, step_k, step_p, step_d, model_k, model_p
 
     kernels = []
@@ -831,6 +911,7 @@ def main() -> int:
             key = (dname, c)
             by_path = ({name: f32_launches[name].get(key, 0) for name in f32_launches} if f32
                        else {"efts_cnn": launches.get(key, 0), "efts_transformer": tr_launches.get(key, 0)})
+            by_path.update({f"efts_cnn_{v}": narrow_launches[v, dname].get(key, 0) for v in NARROW_VOCODERS})
             row = {
                 "name": f"mrf_stage_{'f32_' if f32 else ''}c{c}", "route": "cuda",
                 "source": "efficient_tts_tpu_torch/csrc/mrf_stage.cu",
@@ -969,10 +1050,20 @@ def main() -> int:
 
         prof = device_profile(torch, kernel_bwd, n=N_TIMED)
         call_ms = time_ms(kernel_bwd)
+        # host time of one backward call: di, the 4 TMA maps each kernel's
+        # entry encodes, and the two launches
+        bwd_host_us = host_us(torch, kernel_bwd)
         lib_dev = device_ms(torch, library_bwd)
         lib_ms = lib_dev if lib_dev is not None else time_ms(library_bwd)["median"]
-        for part, kname in (("dkv", "flash_bwd_dkv_kernel"), ("dq", "flash_bwd_dq_kernel")):
-            k_dev = sum(v_[0] for key, v_ in prof.items() if kname in key) if prof else None
+        for part in ("dkv", "dq"):
+            kname = FLASH_KERNELS[part]
+            named = [v_ for key, v_ in prof.items() if kname in key]
+            if not named:
+                raise AssertionError(f"the profile of the backward call does not name {kname}: {sorted(prof)}")
+            # device time per launch: the profiler may miss the first calls'
+            # launches, so divide by the launches it recorded, not the calls
+            launches_seen = sum(v_[1] for v_ in named)
+            k_dev = sum(v_[0] for v_ in named) / launches_seen
 
             def plain(part=part):
                 return plain_bwd_part(torch, fa, part, q, k, v, o, m, l, do, seg, scale)
@@ -980,7 +1071,7 @@ def main() -> int:
             p_dev = device_ms(torch, plain)
             p_ms = p_dev if p_dev is not None else time_ms(plain)["median"]
             bound, bound_by, flops = flash_bwd_bound_ms(q, seg, part)
-            k_ms = k_dev if k_dev else call_ms["median"]
+            k_ms = k_dev
             row = {
                 "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR else f"t{t}"), "route": "cuda",
                 "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
@@ -992,13 +1083,14 @@ def main() -> int:
                 "precision": "tf32 operands, f32 softmax, di and sums",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
                 "library_call": "F.scaled_dot_product_attention backward, f32, boolean mask (dq, dk, dv together)",
-                "timed_by": "device" if k_dev else "event (di and both kernels)",
+                "timed_by": "device", "launches_recorded_per_call": launches_seen,
             }
             kernels.append(row)
             log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "segment_ids": segmented,
                  "tflops": flops / (k_ms * 1e9), "bound_share": bound / k_ms,
                  "backward_call_ms": call_ms["median"], "backward_call_ms_p25": call_ms["p25"],
-                 "backward_call_ms_p75": call_ms["p75"], "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
+                 "backward_call_ms_p75": call_ms["p75"], "backward_call_host_us": bwd_host_us,
+                 "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
                  **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
         del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, prof
 

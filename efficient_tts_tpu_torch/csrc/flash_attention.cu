@@ -1,12 +1,13 @@
 // Flash attention forward and backward for Hopper (sm_90a), f32 in and out.
 //
 // Replaces the three `pallas_call`s of JAX's library TPU flash attention
-// (jax/experimental/pallas/ops/tpu/flash_attention.py: the forward,
-// _flash_attention_kernel_single_batch; the backward's dkv kernel,
-// _flash_attention_dkv_kernel; and its dq kernel, _flash_attention_dq_kernel),
-// which the JAX package reaches through efficient_tts_tpu/nn/attention.py:
-// _flash_attention for every eligible EFTS-Transformer self-attention, in
-// inference and in training. Per (batch, head), with
+// (jax 0.9.0, jax/experimental/pallas/ops/tpu/flash_attention.py: the
+// forward, _flash_attention_kernel_single_batch, its call at :758; the
+// backward's dkv kernel, _flash_attention_dkv_kernel (:796), its call at
+// :1121; and its dq kernel, _flash_attention_dq_kernel (:1146), its call at
+// :1456), which the JAX package reaches through efficient_tts_tpu/nn/
+// attention.py:_flash_attention for every eligible EFTS-Transformer
+// self-attention, in inference and in training. Per (batch, head), with
 // x = q k^T * sm_scale + where(seg_q == seg_k, 0, mask_value) (no mask term
 // without segment ids):
 //
@@ -19,48 +20,77 @@
 // with di = sum(o * do, -1) computed by the caller. The scale is applied
 // after the product and again to ds, where the library's kernels apply it.
 // The forward keeps the library's l == 0 guard; l is never 0 here because
-// mask_value is finite, so the row's maximum contributes exp(0) = 1. Each
-// backward kernel writes its outputs once, with no atomics, so the
+// mask_value is finite, so the row's maximum contributes exp(0) = 1, and a
+// row whose keys are all in other segments gets p = exp(0) / l, not NaN.
+// Each backward kernel writes its outputs once, with no atomics, so the
 // gradients are deterministic. The Python wrapper is
 // efficient_tts_tpu_torch/ops/flash_attention.py.
 //
-// Operand precision: TF32. Every product runs on the tensor cores as
-// mma.sync m16n8k8 TF32 with f32 accumulation; q, k, v, do, the softmax
-// weights p and ds are rounded to TF32 (cvt.rna, 10 explicit mantissa bits)
-// as they enter an mma. Everything else (scale, mask, max, exp, di, sums,
-// the rescaling and 1/l) is f32. The JAX reference computes in f32, so this
-// is a stated rounding of about 2^-11 relative per operand; the port's
-// plain versions are f32 throughout.
+// Operand precision: TF32. Every product runs on the tensor cores with f32
+// accumulation; q, k, v, do, the softmax weights p and ds are rounded to
+// TF32 to nearest, ties away (10 explicit mantissa bits: cvt.rna in the
+// forward, `round_tf32` in shared memory in the backward, before the first
+// wgmma reads them: a wgmma would otherwise truncate). Everything else
+// (scale, mask, max, exp, di, sums, the rescaling and 1/l) is f32. The JAX
+// reference computes in f32, so this is a stated rounding of about 2^-11
+// relative per operand; the port's plain versions are f32 throughout.
 //
-// Bound on the H100: the forward moves each of q, k, v and o once, 16 bytes
-// per head element, against 4*T*dk operations per query row. At the
-// decoder's [B=16, H=4, T=512, dk=96] that is 50.3 MB and 6.44 GFLOP: 15.0
-// us by bytes at 3.35 TB/s against 13.0 us by operations at the TF32 peak
-// of 495 TFLOP/s. The dkv kernel does 4 products per (query, key) pair and
-// the dq kernel 3, so both are bound by operations at T = 512.
+// Bounds on the H100 (utils/roofline.py: operations at the TF32 peak of 495
+// TFLOP/s, bytes at 3.35 TB/s). The forward moves each of q, k, v and o
+// once against 4*T*dk operations per query row: at the decoder's [B=16,
+// H=4, T=512, dk=96], 15.0 us by bytes. The dkv kernel does 4 products per
+// (query, key) pair and the dq kernel 3: at the training shape [64, 4, 512,
+// 96] they are bound by operations, 104 us and 78 us; at the text
+// encoder's [64, 4, 128, 96] by bytes, 22.7 us and 18.9 us.
 //
-// Design, the simple one: mma.sync with the operands staged in shared
-// memory by cp.async, the streamed tiles double-buffered. Rows of shared
-// memory are padded to dk_pad + 4 floats, which makes every fragment load
-// conflict-free; dk is padded with zero columns to 32, 64, 96 or 128. A
-// score tile stays in registers and feeds the next product directly: the
-// keys (or queries) of each 8-wide chunk are taken in the order 0,2,4,6,
-// 1,3,5,7, which turns the accumulator layout into the A-operand layout with
-// no shuffle, and the B operand's rows are read in the same order. exp(x)
-// is computed as exp2(x * log2 e).
-//   forward: one block of 4 warps per (batch, head, 64-row query tile), each
-//     warp owning 16 query rows, whose q it reads once from device memory
-//     into registers as TF32 fragments; 64-key K and V tiles stream through
-//     shared memory (100 KB at dk = 96, two blocks per SM).
-//   dkv: one block of 4 warps per (batch, head, 64-key tile), each warp
-//     owning 16 keys, with the block's K and V held in shared memory; 32-row
-//     q and do tiles stream past. Per tile the warp forms s^T = k q^T and
-//     dp^T = v do^T, then p^T and ds^T in registers, and accumulates
-//     dv += p^T do and dk += ds^T q in registers (100 KB, two blocks per SM).
-//   dq: one block of 4 warps per (batch, head, 64-row query tile), with the
-//     block's q and do in shared memory; 32-key K and V tiles stream past.
-//     Per tile the warp forms s = q k^T and dp = do v^T, then ds, and
-//     accumulates dq += ds k (100 KB, two blocks per SM).
+// Forward design (mma.sync): one block of 4 warps per (batch, head, 64-row
+// query tile), each warp owning 16 query rows, whose q it reads once from
+// device memory into registers as TF32 fragments; 64-key K and V tiles
+// stream through shared memory by cp.async, double-buffered, in rows padded
+// to dk_pad + 4 floats (conflict-free fragment loads; dk is padded with zero
+// columns to 32, 64, 96 or 128). A score tile stays in registers and feeds
+// the next product directly: the keys of each 8-wide chunk are taken in the
+// order 0,2,4,6, 1,3,5,7, which turns the accumulator layout into the
+// A-operand layout with no shuffle. 100 KB at dk = 96, two blocks per SM.
+//
+// Backward design: warp-specialized wgmma blocks of 256 threads, one per
+// (batch, head, 64-key block) for dkv and per (batch, head, 64-row query
+// block) for dq; 32-row tiles of the other side stream past the block's
+// resident 64 rows.
+//  - A producer warpgroup: one thread keeps S - 1 tiles in flight by TMA
+//    (q and do for dkv, k and v for dq, and their row data by bulk copy)
+//    into a ring of S stages behind full, empty and landed mbarriers. The
+//    tensor maps (`plane_map`, 4 per call, made on the host at each launch:
+//    the operands are strided views, new at every call) cut an R-row tile
+//    straight into the plane layout below and fill the head-dim padding
+//    with zeros. As a tile lands the warpgroup rounds it to TF32 in place
+//    (a TF32 wgmma would otherwise truncate) and writes the transposes the
+//    second products need: a TF32 wgmma reads both shared operands K-major
+//    only (no transpose bit for .tf32, and TMA does not transpose 4-byte
+//    elements), and those products contract over the 32 streamed rows.
+//  - A consumer warpgroup: per tile the first two products (s and dp, or
+//    their transposes; M = 64, N = 32, K = DKP) read both operands from
+//    shared memory as stored (SS form); p and ds are formed in f32 in the
+//    accumulator registers and rounded; the second products (N = DKP, K =
+//    32) take them as the A operand straight from those registers (RS
+//    form), the transposes as B. The transposes store each 8 rows in the
+//    order 0,2,4,6,1,3,5,7, which makes the accumulator registers the A
+//    fragment as they are. The A registers are not touched again until
+//    wgmma.wait_group has seen those products complete.
+// Tiles are unswizzled plane layouts (`plane_desc`): any 8 rows of a
+// 16-byte plane are a core matrix, and the transposes' padded plane stride
+// keeps their scattered writes conflict-free. One tile size (64 x 32)
+// serves both training shapes: a dkv block runs 16 tiles at T = 512 and 4
+// at T = 128, 2048 and 512 blocks. Per tile a dkv block moves about 150 KB
+// through shared memory (72 KB of first-product operands, 72 KB to land,
+// round and transpose q and do): that, not the tensor cores, bounds this
+// design.
+// Budget at DKP = 96: dkv 199,120 bytes of shared memory (k, v 48 KB; three
+// stages of q, do, their transposes and row data, 48.8 KB each) and 157
+// registers a thread (dk and dv 96, s and dp 32); dq 160,720 bytes (q, do
+// 48 KB; three stages of k, v, k^T and segment ids, 36.3 KB each) and 108
+// registers; no spills at DKP = 32-128 (dkv 194 registers at 128). One
+// block per SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,15 +98,14 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int BM = 64;        // forward: query rows per block
 constexpr int BN = 64;        // forward: keys per K/V tile
-constexpr int BKV = 64;       // dkv: keys per block
-constexpr int BQ = 32;        // dkv: queries per q/do tile
-constexpr int BQD = 64;       // dq: query rows per block
-constexpr int BKD = 32;       // dq: keys per K/V tile
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+constexpr int THREADS = 128;  // forward: 4 warps x 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -115,21 +144,6 @@ struct BwdParams {
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
   float sm_scale, mask_value;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
@@ -174,16 +188,6 @@ __device__ __forceinline__ void zero_pad_columns(float* smem, int rows, int dk, 
   constexpr int LD = DKP + 4;
   const int padc = DKP - dk;
   for (int i = tid; i < rows * padc; i += THREADS) smem[(i / padc) * LD + dk + i % padc] = 0.f;
-}
-
-// A fragment (16x8, rows g and g+8, columns t and t+4) of 16 shared rows.
-template <int LD>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float* rows, int ks, int g, int t) {
-  const float* r = rows + g * LD + ks * 8 + t;
-  a[0] = tf32(r[0]);
-  a[1] = tf32(r[8 * LD]);
-  a[2] = tf32(r[4]);
-  a[3] = tf32(r[8 * LD + 4]);
 }
 
 // Accumulator (rows g, g+8 at columns 2t, 2t+1) as an A fragment whose k
@@ -349,295 +353,642 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   }
 }
 
-// dk and dv for one (batch, head, 64-key tile); this warp owns keys
-// k0 + 16 * warp + (g, g+8) and works on the transposed scores s^T.
-template <int DKP>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int LD = DKP + 4;
-  constexpr int KS = DKP / 8;  // k8 steps over the head dim, n8 tiles of dk and dv
-  constexpr int NQ = BQ / 8;   // n8 tiles of a score tile, k8 steps of the dk/dv products
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;              // [BKV][LD]
-  float* Vs = Ks + BKV * LD;     // [BKV][LD]
-  float* Qs = Vs + BKV * LD;     // [2][BQ][LD]
-  float* Ds = Qs + 2 * BQ * LD;  // [2][BQ][LD], do
+// ---------------------------------------------------------------------------
+// The backward kernels: warpgroup MMA (wgmma), operand tiles by TMA
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+constexpr int BKV = 64;              // dkv: keys per block (the wgmma's M)
+constexpr int BQ = 32;               // dkv: queries per streamed q/do tile
+constexpr int BQD = 64;              // dq: query rows per block (the wgmma's M)
+constexpr int BKD = 32;              // dq: keys per streamed k/v tile
+constexpr int WG = 128;              // threads of a warpgroup
+constexpr int BWD_THREADS = 2 * WG;  // a consumer warpgroup (wgmma) and a producer warpgroup
+
+// Shared operand tiles are K-major and unswizzled, stored as planes: a tile
+// of R rows x DKP columns is DKP/4 planes, each R rows of 16 bytes (4
+// columns) back to back, so any 8 rows of a plane are one core matrix. A
+// wgmma k step (8 TF32 columns) is two planes: core matrices a plane apart
+// along K and 128 bytes apart along M or N.
+__device__ __forceinline__ uint64_t plane_desc(const float* tile, int k_step, int plane_floats) {
+  const uint32_t pb = static_cast<uint32_t>(plane_floats) * 4u;
+  return desc_plain(smem_u32(tile) + k_step * 2 * pb, pb, 128);
+}
+
+// D[64 x N] += A[64 x 8] B[N x 8]^T for one warpgroup, TF32, A from
+// registers (`a`: this thread's four TF32 values in the mma.sync m16n8k8
+// A layout of its warp's 16 rows: (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4)), B K-major in shared memory. The A registers must not change
+// until a wgmma.wait_group shows this wgmma complete.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t (&a)[4], uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<96>(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
+      " {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// generic-proxy writes to shared memory made visible to the next wgmma or TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The TMA maps of a backward call's operands (`plane_map`): boxes of one
+// tile each, in the plane layout.
+struct TileMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// One box of a `plane_map` (rows [row, row + R) of head h of batch b) into
+// shared memory, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_tile(float* dst, const CUtensorMap* map, uint64_t* bar, int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, "
+      "%7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ float4 round_tf32x4(float4 v) {
+  return make_float4(round_tf32(v.x), round_tf32(v.y), round_tf32(v.z), round_tf32(v.w));
+}
+
+// round the N floats of a tile to TF32 in place, one warpgroup
+template <int N>
+__device__ __forceinline__ void round_planes(float* tile, int tid) {
+#pragma unroll
+  for (int it = 0; it < N / (4 * WG); ++it) {
+    float4* p = reinterpret_cast<float4*>(tile) + tid + it * WG;
+    *p = round_tf32x4(*p);
+  }
+}
+
+// Round a 32-row plane tile to TF32 in place and write its transpose into
+// `tr`: column c of the tile becomes row c of `tr`, a tile of DKP rows whose
+// 8 planes hold 4 of the 32 rows each, the B operand of a product whose A
+// comes from a wgmma accumulator. An accumulator holds columns 2t and 2t + 1
+// of each 8 where the A fragment wants t and t + 4, so each 8 rows r0..r7 of
+// the tile are stored in the order r0, r2, r4, r6 | r1, r3, r5, r7 (two
+// planes), which makes the accumulator registers the A fragment as they
+// are. A warp takes one plane's 32 rows; the transpose's planes are DKP * 4
+// + 4 floats apart, so the 8 planes a warp writes fall on different banks.
+template <int DKP>
+__device__ __forceinline__ void round_transpose(float* tile, float* tr, int tid) {
+  constexpr int PT = DKP * 4 + 4;
+  float4 v[DKP / 16];
+#pragma unroll
+  for (int it = 0; it < DKP / 16; ++it) {
+    float4* s = reinterpret_cast<float4*>(tile) + tid + it * WG;
+    v[it] = round_tf32x4(*s);
+    *s = v[it];
+  }
+#pragma unroll
+  for (int it = 0; it < DKP / 16; ++it) {
+    const int i = tid + it * WG, r = i & 31, pl = i >> 5;
+    float* d = tr + ((r >> 3) * 2 + (r & 1)) * PT + pl * 16 + ((r >> 1) & 3);
+    d[0] = v[it].x;
+    d[4] = v[it].y;
+    d[8] = v[it].z;
+    d[12] = v[it].w;
+  }
+}
+
+// Columns 8j..8j+7 of a 64 x 32 wgmma accumulator (d[4j + 2h + e] at row
+// 16 warp + g + 8h, column 8j + 2t + e), already rounded, as the A fragment
+// of a k step whose B rows are in `round_transpose`'s order
+__device__ __forceinline__ void acc_a_frag(uint32_t (&a)[4], const float (&d)[16], int j) {
+  a[0] = __float_as_uint(d[4 * j]);
+  a[1] = __float_as_uint(d[4 * j + 2]);
+  a[2] = __float_as_uint(d[4 * j + 1]);
+  a[3] = __float_as_uint(d[4 * j + 3]);
+}
+
+// Store a 64 x DKP accumulator's rows (row0 + 16 warp + g, + 8) to a
+// [T, hd] output with row stride `st`, the columns below hd only.
+template <int DKP>
+__device__ __forceinline__ void store_rows(float* out, long long st, const float* acc, int row0, int hd, int warp,
+                                           int g, int t) {
+  const int ra = row0 + 16 * warp + g, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j) {
+    if (j * 8 >= hd) break;
+    const int col = j * 8 + 2 * t;
+    *reinterpret_cast<float2*>(out + ra * st + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + rb * st + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The start of dynamic shared memory, rounded up to 128 bytes (TMA's
+// alignment); the kernels ask for 128 bytes more than their layout.
+__device__ __forceinline__ float* smem_base() {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  return reinterpret_cast<float*>(smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u));
+}
+
+// Shared memory of the backward kernels, in floats; every tile starts on
+// 128 bytes. dkv: the resident k and v (64 rows each); S stages, each a
+// 32-query tile of q and do, their transposes and their row data (m, 1/l,
+// di, segment ids); the mbarriers (full, empty and landed per stage, one
+// for k and v). At DKP = 96 that is 199,120 bytes with S = 3; DKP = 128
+// keeps S = 2 (198,328 bytes).
+template <int DKP>
+struct DkvLayout {
+  static constexpr int PT = DKP * 4 + 4;
+  static constexpr int S = DKP <= 96 ? 3 : 2;
+  static constexpr int KV = BKV * DKP;      // one of k, v
+  static constexpr int QD = BQ * DKP;       // one of a stage's q, do
+  static constexpr int TR = (BQ / 4) * PT;  // one transposed tile
+  static constexpr int STAGE = 2 * QD + 2 * TR + 4 * BQ;
+  static constexpr int BYTES = (2 * KV + S * STAGE) * 4 + (3 * S + 1) * 8 + 128;
+};
+
+// dq: the resident q and do (64 rows each); S stages, each a 32-key tile of
+// k and v, the transpose of k and the keys' segment ids; the mbarriers.
+// 160,720 bytes at DKP = 96, 213,968 at 128.
+template <int DKP>
+struct DqLayout {
+  static constexpr int PT = DKP * 4 + 4;
+  static constexpr int S = 3;
+  static constexpr int QD = BQD * DKP;       // one of q, do
+  static constexpr int KV = BKD * DKP;       // one of a stage's k, v
+  static constexpr int TR = (BKD / 4) * PT;  // the transposed k tile
+  static constexpr int STAGE = 2 * KV + TR + BKD;
+  static constexpr int BYTES = (2 * QD + S * STAGE) * 4 + (3 * S + 1) * 8 + 128;
+};
+
+// dk and dv for one (batch, head, 64-key block). One producer thread keeps
+// S - 1 tiles of q and do (and their m, l, di and segment ids) in flight by
+// TMA; as each lands, the producer warpgroup rounds it to TF32 in place and
+// writes the transposes of q and do. The consumer warpgroup, per tile:
+// s^T = k q^T and dp^T = v do^T (M = 64 keys, N = 32 queries, K = DKP,
+// both operands in shared memory), p^T and ds^T in registers, rounded to
+// TF32, then dv += p^T do and dk += ds^T q (M = 64 keys, N = DKP, K = 32
+// queries) with p^T and ds^T as the A operand in registers and the
+// transposes as B.
+template <int DKP>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const BwdParams p, const __grid_constant__ TileMaps maps) {
+  using L = DkvLayout<DKP>;
+  constexpr int S = L::S;
+  float* Ks = smem_base();
+  float* Vs = Ks + L::KV;
+  float* ring = Vs + L::KV;  // stage s: q, do, q^T, do^T, row data
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * L::STAGE);
+  uint64_t* empty = full + S;
+  uint64_t* landed = empty + S;
+  uint64_t* resident = landed + S;
+  auto q_of = [&](int s) { return ring + s * L::STAGE; };
+  auto do_of = [&](int s) { return ring + s * L::STAGE + L::QD; };
+  auto qt_of = [&](int s) { return ring + s * L::STAGE + 2 * L::QD; };
+  auto dt_of = [&](int s) { return ring + s * L::STAGE + 2 * L::QD + L::TR; };
+  auto stat_of = [&](int s) { return ring + s * L::STAGE + 2 * L::QD + 2 * L::TR; };
+
+  const int tid = threadIdx.x, lt = tid & (WG - 1);
   const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
   const int k0 = blockIdx.x * BKV;
-  const float* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const float* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const float* vb = p.v + b * p.sv.b + h * p.sv.h;
-  const float* db = p.dout + b * p.sdo.b + h * p.sdo.h;
-  const size_t rows = static_cast<size_t>(blockIdx.y) * p.Tq;  // m, l, di of this (b, h)
-  const float* mq = p.m + rows;
-  const float* lq = p.l + rows;
-  const float* dq_i = p.di + rows;
-  const int vecs = p.hd / 4;
-
-  zero_pad_columns<DKP>(smem, 2 * BKV + 4 * BQ, p.hd, tid);
-  load_rows<LD>(Ks, kb, p.sk.t, k0, BKV, vecs, tid);
-  load_rows<LD>(Vs, vb, p.sv.t, k0, BKV, vecs, tid);
-  load_rows<LD>(Qs, qb, p.sq.t, 0, BQ, vecs, tid);
-  load_rows<LD>(Ds, db, p.sdo.t, 0, BQ, vecs, tid);
-  cp_async_commit();
-
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const int n_tiles = p.Tq / BQ;
   const bool seg = p.seg_q != nullptr;
-  const int* sq = seg ? p.seg_q + static_cast<size_t>(b) * p.Tq : nullptr;
-  const int id_a = seg ? p.seg_kv[static_cast<size_t>(b) * p.Tk + key_a] : 0;
-  const int id_b = seg ? p.seg_kv[static_cast<size_t>(b) * p.Tk + key_b] : 0;
-  const float* Kw = Ks + warp * 16 * LD;
-  const float* Vw = Vs + warp * 16 * LD;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], WG);
+      mbar_init(&empty[s], WG);
+      mbar_init(&landed[s], 1);
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are initialised
 
-  float dka[KS][4], dva[KS][4];
-#pragma unroll
-  for (int i = 0; i < KS; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  const bool producer = tid >= WG;
+  const size_t rows = static_cast<size_t>(blockIdx.y) * p.Tq;  // m, l, di of this (b, h)
+  // tile j's q and do (a box each) and its m, l, di and segment ids (32 values each)
+  auto issue = [&](int j) {
+    const int s = j % S;
+    uint64_t* bar = &landed[s];
+    float* st = stat_of(s);
+    mbar_expect_tx(bar, 2 * L::QD * 4 + (seg ? 4 : 3) * BQ * 4);
+    tma_tile(q_of(s), &maps.q, bar, j * BQ, h, b);
+    tma_tile(do_of(s), &maps.dout, bar, j * BQ, h, b);
+    bulk_load(st, p.m + rows + j * BQ, BQ * 4, bar);
+    bulk_load(st + BQ, p.l + rows + j * BQ, BQ * 4, bar);
+    bulk_load(st + 2 * BQ, p.di + rows + j * BQ, BQ * 4, bar);
+    if (seg) bulk_load(st + 3 * BQ, p.seg_q + static_cast<size_t>(b) * p.Tq + j * BQ, BQ * 4, bar);
+  };
+
+  if (producer) {
+    if (lt == 0) {
+      mbar_expect_tx(resident, 2 * L::KV * 4);
+      tma_tile(Ks, &maps.k, resident, k0, h, b);
+      tma_tile(Vs, &maps.v, resident, k0, h, b);
+      for (int j = 0; j < S - 1 && j < n_tiles; ++j) issue(j);
+    }
+    mbar_wait(resident, 0);
+    round_planes<L::KV>(Ks, lt);
+    round_planes<L::KV>(Vs, lt);
+    fence_proxy_async();
+  }
+  __syncthreads();  // k and v are rounded
+
+  if (producer) {
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      mbar_wait(&landed[s], (j / S) & 1);
+      round_transpose<DKP>(q_of(s), qt_of(s), lt);
+      round_transpose<DKP>(do_of(s), dt_of(s), lt);
+      if (lt < BQ / 4) {  // l -> 1 / l, once per query
+        float4* lq = reinterpret_cast<float4*>(stat_of(s) + BQ) + lt;
+        const float4 v = *lq;
+        *lq = make_float4(1.f / v.x, 1.f / v.y, 1.f / v.z, 1.f / v.w);
+      }
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+      // tile j + S - 1 goes where tile j - 1 was, once the consumer has read it
+      const int jn = j + S - 1;
+      if (lt == 0 && jn < n_tiles) {
+        if (jn >= S) mbar_wait(&empty[jn % S], (jn / S - 1) & 1);
+        issue(jn);
+      }
+    }
+    return;
   }
 
-  const int n_tiles = p.Tq / BQ;
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      const int buf = (j + 1) & 1;
-      load_rows<LD>(Qs + buf * BQ * LD, qb, p.sq.t, (j + 1) * BQ, BQ, vecs, tid);
-      load_rows<LD>(Ds + buf * BQ * LD, db, p.sdo.t, (j + 1) * BQ, BQ, vecs, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Qt = Qs + (j & 1) * BQ * LD;
-    const float* Dt = Ds + (j & 1) * BQ * LD;
+  // consumer
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+  const int id_a = seg ? p.seg_kv[static_cast<size_t>(b) * p.Tk + key_a] : 0;
+  const int id_b = seg ? p.seg_kv[static_cast<size_t>(b) * p.Tk + key_b] : 0;
+  float dka[DKP / 2], dva[DKP / 2];
+#pragma unroll
+  for (int i = 0; i < DKP / 2; ++i) dka[i] = dva[i] = 0.f;
 
-    // s^T = k q^T and dp^T = v do^T for this warp's 16 keys and 32 queries
-    float s[NQ][4], dp[NQ][4];
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % S;
+    mbar_wait(&full[st], (j / S) & 1);
+    const float* stat = stat_of(st);
+
+    float s[16], dp[16];
 #pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DKP / 8; ++ks) {
+      wgmma_ss<BQ, true>(s, plane_desc(Ks, ks, BKV * 4), plane_desc(q_of(st), ks, BQ * 4));
+      wgmma_ss<BQ, true>(dp, plane_desc(Vs, ks, BKV * 4), plane_desc(do_of(st), ks, BQ * 4));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ka[4], va[4];
-      a_frag<LD>(ka, Kw, ks, g, t);
-      a_frag<LD>(va, Vw, ks, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const float* qr = Qt + (nt * 8 + g) * LD + ks * 8 + t;
-        mma_tf32(s[nt], ka, tf32(qr[0]), tf32(qr[4]));
-        const float* dr = Dt + (nt * 8 + g) * LD + ks * 8 + t;
-        mma_tf32(dp[nt], va, tf32(dr[0]), tf32(dr[4]));
-      }
+    for (int i = 0; i < 16; ++i) {
+      fence_operand(s[i]);
+      fence_operand(dp[i]);
     }
 
     // p^T = exp(x - m) / l and ds^T = ((dp - di) p) * scale, per query column
 #pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
+    for (int jn = 0; jn < 4; ++jn) {
+      const int qc = 8 * jn + 2 * t;
+      const float2 m2 = *reinterpret_cast<const float2*>(stat + qc);
+      const float2 il2 = *reinterpret_cast<const float2*>(stat + BQ + qc);
+      const float2 di2 = *reinterpret_cast<const float2*>(stat + 2 * BQ + qc);
+      const int2 id2 = seg ? *reinterpret_cast<const int2*>(stat + 3 * BQ + qc) : make_int2(0, 0);
+      const float mq[2] = {m2.x, m2.y}, il[2] = {il2.x, il2.y}, di[2] = {di2.x, di2.y};
+      const int idq[2] = {id2.x, id2.y};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int qi = j * BQ + nt * 8 + 2 * t + e;
-        const float m_q = mq[qi], inv_l = 1.f / lq[qi], di = dq_i[qi];
-        float x_a = s[nt][e] * p.sm_scale, x_b = s[nt][2 + e] * p.sm_scale;
+        float x_a = s[4 * jn + e] * p.sm_scale, x_b = s[4 * jn + 2 + e] * p.sm_scale;
         if (seg) {
-          const int id_q = sq[qi];
-          x_a += (id_a == id_q) ? 0.f : p.mask_value;
-          x_b += (id_b == id_q) ? 0.f : p.mask_value;
+          x_a += (id_a == idq[e]) ? 0.f : p.mask_value;
+          x_b += (id_b == idq[e]) ? 0.f : p.mask_value;
         }
-        const float p_a = exp2f((x_a - m_q) * kLog2e) * inv_l;
-        const float p_b = exp2f((x_b - m_q) * kLog2e) * inv_l;
-        s[nt][e] = p_a;
-        s[nt][2 + e] = p_b;
-        dp[nt][e] = ((dp[nt][e] - di) * p_a) * p.sm_scale;
-        dp[nt][2 + e] = ((dp[nt][2 + e] - di) * p_b) * p.sm_scale;
+        const float p_a = exp2f((x_a - mq[e]) * kLog2e) * il[e];
+        const float p_b = exp2f((x_b - mq[e]) * kLog2e) * il[e];
+        s[4 * jn + e] = round_tf32(p_a);
+        s[4 * jn + 2 + e] = round_tf32(p_b);
+        dp[4 * jn + e] = round_tf32(((dp[4 * jn + e] - di[e]) * p_a) * p.sm_scale);
+        dp[4 * jn + 2 + e] = round_tf32(((dp[4 * jn + 2 + e] - di[e]) * p_b) * p.sm_scale);
       }
     }
-
-    // dv += p^T do and dk += ds^T q: chunk kc's A column t is query 2t and
-    // column t+4 is query 2t+1
+    // p^T and ds^T stay in registers as the A operand (RS form); they are
+    // not touched again until the wait below
+    uint32_t pa[4][4], sa[4][4];
 #pragma unroll
-    for (int kc = 0; kc < NQ; ++kc) {
-      uint32_t pa[4], sa[4];
-      acc_as_a(pa, s[kc]);
-      acc_as_a(sa, dp[kc]);
-      const float* dr = Dt + (kc * 8 + 2 * t) * LD + g;
-      const float* qr = Qt + (kc * 8 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dn = 0; dn < KS; ++dn) {
-        mma_tf32(dva[dn], pa, tf32(dr[dn * 8]), tf32(dr[LD + dn * 8]));
-        mma_tf32(dka[dn], sa, tf32(qr[dn * 8]), tf32(qr[LD + dn * 8]));
-      }
+    for (int ks = 0; ks < BQ / 8; ++ks) {
+      acc_a_frag(pa[ks], s, ks);
+      acc_a_frag(sa[ks], dp, ks);
     }
-    __syncthreads();  // the next iteration's loads overwrite this tile's buffer
-  }
-
-  float* dkb = p.dk + b * p.sdk.b + h * p.sdk.h;
-  float* dvb = p.dv + b * p.sdv.b + h * p.sdv.h;
+    wgmma_fence();
 #pragma unroll
-  for (int dn = 0; dn < KS; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (dn * 8 >= p.hd) break;
-    *reinterpret_cast<float2*>(dkb + key_a * p.sdk.t + col) = make_float2(dka[dn][0], dka[dn][1]);
-    *reinterpret_cast<float2*>(dkb + key_b * p.sdk.t + col) = make_float2(dka[dn][2], dka[dn][3]);
-    *reinterpret_cast<float2*>(dvb + key_a * p.sdv.t + col) = make_float2(dva[dn][0], dva[dn][1]);
-    *reinterpret_cast<float2*>(dvb + key_b * p.sdv.t + col) = make_float2(dva[dn][2], dva[dn][3]);
+    for (int ks = 0; ks < BQ / 8; ++ks) wgmma_rs_tf32<DKP>(dva, pa[ks], plane_desc(dt_of(st), ks, L::PT));
+#pragma unroll
+    for (int ks = 0; ks < BQ / 8; ++ks) wgmma_rs_tf32<DKP>(dka, sa[ks], plane_desc(qt_of(st), ks, L::PT));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&empty[st]);  // the stage is read
   }
+#pragma unroll
+  for (int i = 0; i < DKP / 2; ++i) {
+    fence_operand(dka[i]);
+    fence_operand(dva[i]);
+  }
+  store_rows<DKP>(p.dk + b * p.sdk.b + h * p.sdk.h, p.sdk.t, dka, k0, p.hd, warp, g, t);
+  store_rows<DKP>(p.dv + b * p.sdv.b + h * p.sdv.h, p.sdv.t, dva, k0, p.hd, warp, g, t);
 }
 
-// dq for one (batch, head, 64-row query tile); this warp owns rows
-// q0 + 16 * warp + (g, g+8).
+// dq for one (batch, head, 64-row query block). One producer thread keeps
+// S - 1 tiles of k and v (and their segment ids) in flight by TMA; as each
+// lands, the producer warpgroup rounds it to TF32 in place and writes the
+// transpose of k. The consumer warpgroup, per tile: s = q k^T and dp = do
+// v^T (M = 64 queries, N = 32 keys, K = DKP, both operands in shared
+// memory), ds in registers, rounded to TF32, then dq += ds k (M = 64
+// queries, N = DKP, K = 32 keys) with ds as the A operand in registers and
+// the transpose of k as B.
 template <int DKP>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LD = DKP + 4;
-  constexpr int KS = DKP / 8;  // k8 steps over the head dim, n8 tiles of dq
-  constexpr int NK = BKD / 8;  // n8 tiles of a score tile, k8 steps of ds.k
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // [BQD][LD]
-  float* Ds = Qs + BQD * LD;      // [BQD][LD], do
-  float* Ks = Ds + BQD * LD;      // [2][BKD][LD]
-  float* Vs = Ks + 2 * BKD * LD;  // [2][BKD][LD]
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const BwdParams p, const __grid_constant__ TileMaps maps) {
+  using L = DqLayout<DKP>;
+  constexpr int S = L::S;
+  float* Qs = smem_base();
+  float* Ds = Qs + L::QD;
+  float* ring = Ds + L::QD;  // stage s: k, v, k^T, the keys' segment ids
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * L::STAGE);
+  uint64_t* empty = full + S;
+  uint64_t* landed = empty + S;
+  uint64_t* resident = landed + S;
+  auto k_of = [&](int s) { return ring + s * L::STAGE; };
+  auto v_of = [&](int s) { return ring + s * L::STAGE + L::KV; };
+  auto kt_of = [&](int s) { return ring + s * L::STAGE + 2 * L::KV; };
+  auto seg_of = [&](int s) { return reinterpret_cast<const int*>(ring + s * L::STAGE + 2 * L::KV + L::TR); };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, lt = tid & (WG - 1);
   const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
   const int q0 = blockIdx.x * BQD;
-  const float* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const float* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const float* vb = p.v + b * p.sv.b + h * p.sv.h;
-  const float* db = p.dout + b * p.sdo.b + h * p.sdo.h;
-  const int vecs = p.hd / 4;
+  const int n_tiles = p.Tk / BKD;
+  const bool seg = p.seg_q != nullptr;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], WG);
+      mbar_init(&empty[s], WG);
+      mbar_init(&landed[s], 1);
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are initialised
 
-  zero_pad_columns<DKP>(smem, 2 * BQD + 4 * BKD, p.hd, tid);
-  load_rows<LD>(Qs, qb, p.sq.t, q0, BQD, vecs, tid);
-  load_rows<LD>(Ds, db, p.sdo.t, q0, BQD, vecs, tid);
-  load_rows<LD>(Ks, kb, p.sk.t, 0, BKD, vecs, tid);
-  load_rows<LD>(Vs, vb, p.sv.t, 0, BKD, vecs, tid);
-  cp_async_commit();
+  const bool producer = tid >= WG;
+  // tile j's k and v (a box each) and the keys' segment ids
+  auto issue = [&](int j) {
+    const int s = j % S;
+    uint64_t* bar = &landed[s];
+    mbar_expect_tx(bar, 2 * L::KV * 4 + (seg ? BKD * 4 : 0));
+    tma_tile(k_of(s), &maps.k, bar, j * BKD, h, b);
+    tma_tile(v_of(s), &maps.v, bar, j * BKD, h, b);
+    if (seg)
+      bulk_load(const_cast<int*>(seg_of(s)), p.seg_kv + static_cast<size_t>(b) * p.Tk + j * BKD, BKD * 4, bar);
+  };
 
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  if (producer) {
+    if (lt == 0) {
+      mbar_expect_tx(resident, 2 * L::QD * 4);
+      tma_tile(Qs, &maps.q, resident, q0, h, b);
+      tma_tile(Ds, &maps.dout, resident, q0, h, b);
+      for (int j = 0; j < S - 1 && j < n_tiles; ++j) issue(j);
+    }
+    mbar_wait(resident, 0);
+    round_planes<L::QD>(Qs, lt);
+    round_planes<L::QD>(Ds, lt);
+    fence_proxy_async();
+  }
+  __syncthreads();  // q and do are rounded
+
+  if (producer) {
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      mbar_wait(&landed[s], (j / S) & 1);
+      round_transpose<DKP>(k_of(s), kt_of(s), lt);
+      round_planes<L::KV>(v_of(s), lt);
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+      const int jn = j + S - 1;
+      if (lt == 0 && jn < n_tiles) {
+        if (jn >= S) mbar_wait(&empty[jn % S], (jn / S - 1) & 1);
+        issue(jn);
+      }
+    }
+    return;
+  }
+
+  // consumer
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
   const size_t rows = static_cast<size_t>(blockIdx.y) * p.Tq;
   const float m_a = p.m[rows + row_a], m_b = p.m[rows + row_b];
   const float inv_la = 1.f / p.l[rows + row_a], inv_lb = 1.f / p.l[rows + row_b];
   const float di_a = p.di[rows + row_a], di_b = p.di[rows + row_b];
-  const bool seg = p.seg_q != nullptr;
-  const int* skv = seg ? p.seg_kv + static_cast<size_t>(b) * p.Tk : nullptr;
   const int id_a = seg ? p.seg_q[static_cast<size_t>(b) * p.Tq + row_a] : 0;
   const int id_b = seg ? p.seg_q[static_cast<size_t>(b) * p.Tq + row_b] : 0;
-  const float* Qw = Qs + warp * 16 * LD;
-  const float* Dw = Ds + warp * 16 * LD;
-
-  float dqa[KS][4];
+  float dqa[DKP / 2];
 #pragma unroll
-  for (int i = 0; i < KS; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+  for (int i = 0; i < DKP / 2; ++i) dqa[i] = 0.f;
 
-  const int n_tiles = p.Tk / BKD;
   for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      const int buf = (j + 1) & 1;
-      load_rows<LD>(Ks + buf * BKD * LD, kb, p.sk.t, (j + 1) * BKD, BKD, vecs, tid);
-      load_rows<LD>(Vs + buf * BKD * LD, vb, p.sv.t, (j + 1) * BKD, BKD, vecs, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Kt = Ks + (j & 1) * BKD * LD;
-    const float* Vt = Vs + (j & 1) * BKD * LD;
+    const int st = j % S;
+    mbar_wait(&full[st], (j / S) & 1);
 
-    // s = q k^T and dp = do v^T for this warp's 16 rows and 32 keys
-    float s[NK][4], dp[NK][4];
+    float s[16], dp[16];
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DKP / 8; ++ks) {
+      wgmma_ss<BKD, true>(s, plane_desc(Qs, ks, BQD * 4), plane_desc(k_of(st), ks, BKD * 4));
+      wgmma_ss<BKD, true>(dp, plane_desc(Ds, ks, BQD * 4), plane_desc(v_of(st), ks, BKD * 4));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], da[4];
-      a_frag<LD>(qa, Qw, ks, g, t);
-      a_frag<LD>(da, Dw, ks, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NK; ++nt) {
-        const float* kr = Kt + (nt * 8 + g) * LD + ks * 8 + t;
-        mma_tf32(s[nt], qa, tf32(kr[0]), tf32(kr[4]));
-        const float* vr = Vt + (nt * 8 + g) * LD + ks * 8 + t;
-        mma_tf32(dp[nt], da, tf32(vr[0]), tf32(vr[4]));
-      }
+    for (int i = 0; i < 16; ++i) {
+      fence_operand(s[i]);
+      fence_operand(dp[i]);
     }
 
     // ds = ((dp - di) p) * scale with p = exp(x - m) / l, kept in s
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
+    for (int jn = 0; jn < 4; ++jn) {
+      const int2 id2 = seg ? *reinterpret_cast<const int2*>(seg_of(st) + 8 * jn + 2 * t) : make_int2(0, 0);
+      const int idk[2] = {id2.x, id2.y};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float x_a = s[nt][e] * p.sm_scale, x_b = s[nt][2 + e] * p.sm_scale;
+        float x_a = s[4 * jn + e] * p.sm_scale, x_b = s[4 * jn + 2 + e] * p.sm_scale;
         if (seg) {
-          const int sk = skv[j * BKD + nt * 8 + 2 * t + e];
-          x_a += (id_a == sk) ? 0.f : p.mask_value;
-          x_b += (id_b == sk) ? 0.f : p.mask_value;
+          x_a += (id_a == idk[e]) ? 0.f : p.mask_value;
+          x_b += (id_b == idk[e]) ? 0.f : p.mask_value;
         }
         const float p_a = exp2f((x_a - m_a) * kLog2e) * inv_la;
         const float p_b = exp2f((x_b - m_b) * kLog2e) * inv_lb;
-        s[nt][e] = ((dp[nt][e] - di_a) * p_a) * p.sm_scale;
-        s[nt][2 + e] = ((dp[nt][2 + e] - di_b) * p_b) * p.sm_scale;
+        s[4 * jn + e] = round_tf32(((dp[4 * jn + e] - di_a) * p_a) * p.sm_scale);
+        s[4 * jn + 2 + e] = round_tf32(((dp[4 * jn + 2 + e] - di_b) * p_b) * p.sm_scale);
       }
     }
-
-    // dq += ds k: chunk kc's A column t is key 2t and column t+4 is key 2t+1
+    // ds stays in registers as the A operand (RS form); it is not touched
+    // again until the wait below
+    uint32_t sa[4][4];
 #pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {
-      uint32_t sa[4];
-      acc_as_a(sa, s[kc]);
-      const float* kr = Kt + (kc * 8 + 2 * t) * LD + g;
+    for (int ks = 0; ks < BKD / 8; ++ks) acc_a_frag(sa[ks], s, ks);
+    wgmma_fence();
 #pragma unroll
-      for (int dn = 0; dn < KS; ++dn) mma_tf32(dqa[dn], sa, tf32(kr[dn * 8]), tf32(kr[LD + dn * 8]));
-    }
-    __syncthreads();  // the next iteration's loads overwrite this tile's buffer
+    for (int ks = 0; ks < BKD / 8; ++ks) wgmma_rs_tf32<DKP>(dqa, sa[ks], plane_desc(kt_of(st), ks, L::PT));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&empty[st]);  // the stage is read
   }
-
-  float* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
 #pragma unroll
-  for (int dn = 0; dn < KS; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (dn * 8 >= p.hd) break;
-    *reinterpret_cast<float2*>(dqb + row_a * p.sdq.t + col) = make_float2(dqa[dn][0], dqa[dn][1]);
-    *reinterpret_cast<float2*>(dqb + row_b * p.sdq.t + col) = make_float2(dqa[dn][2], dqa[dn][3]);
-  }
+  for (int i = 0; i < DKP / 2; ++i) fence_operand(dqa[i]);
+  store_rows<DKP>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.t, dqa, q0, p.hd, warp, g, t);
 }
 
-// Launch `kernel` on a (tiles, B * H) grid with `rows_smem` shared rows of
-// DKP + 4 floats; the dynamic shared memory limit is set per device, so it
-// is set on every launch that needs it.
-template <int DKP, typename P>
-cudaError_t launch(void (*kernel)(P), const P& p, int tiles, int BH, int rows_smem,
-                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(rows_smem) * (DKP + 4) * sizeof(float);
+// Launch `kernel` on a (tiles, B * H) grid of `threads` with `smem` bytes of
+// dynamic shared memory; the limit is set per device, so it is set on every
+// launch that needs it.
+template <typename... A>
+cudaError_t launch(void (*kernel)(A...), int tiles, int BH, int threads, size_t smem, cudaStream_t stream,
+                   const A&... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<dim3(tiles, BH), THREADS, smem, stream>>>(p);
+  kernel<<<dim3(tiles, BH), threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <int DKP>
 cudaError_t launch_fwd(const Params& p, int B, cudaStream_t s) {
-  return launch<DKP>(flash_fwd_kernel<DKP>, p, p.Tq / BM, B * p.H, 4 * BN, s);
+  return launch(flash_fwd_kernel<DKP>, p.Tq / BM, B * p.H, THREADS, 4 * BN * (DKP + 4) * sizeof(float), s, p);
+}
+
+// The TMA map of one [B, H, T, hd] f32 operand (element strides `st`, unit
+// last stride) whose box is an R-row tile in the plane layout: dims (4
+// floats, T rows, hd / 4 planes, H, B), box (4, R, DKP / 4, 1, 1); the
+// planes past hd / 4 come as zeros.
+CUresult plane_map(CUtensorMap* map, const float* x, int B, int H, int T, int hd, const Strides& st, int R,
+                   int DKP) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[5] = {4, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(hd / 4),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(st.t) * 4, 16, static_cast<cuuint64_t>(st.h) * 4,
+                                 static_cast<cuuint64_t>(st.b) * 4};
+  const cuuint32_t box[5] = {4, static_cast<cuuint32_t>(R), static_cast<cuuint32_t>(DKP / 4), 1, 1};
+  const cuuint32_t estrides[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<float*>(x), dims, strides, box, estrides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The maps of q, k, v and do, with boxes of rq rows for q and do and rk
+// rows for k and v
+CUresult tile_maps(TileMaps* maps, const BwdParams& p, int B, int rq, int rk, int DKP) {
+  CUresult r = plane_map(&maps->q, p.q, B, p.H, p.Tq, p.hd, p.sq, rq, DKP);
+  if (r == CUDA_SUCCESS) r = plane_map(&maps->dout, p.dout, B, p.H, p.Tq, p.hd, p.sdo, rq, DKP);
+  if (r == CUDA_SUCCESS) r = plane_map(&maps->k, p.k, B, p.H, p.Tk, p.hd, p.sk, rk, DKP);
+  if (r == CUDA_SUCCESS) r = plane_map(&maps->v, p.v, B, p.H, p.Tk, p.hd, p.sv, rk, DKP);
+  return r;
 }
 
 template <int DKP>
-cudaError_t launch_dkv(const BwdParams& p, int B, cudaStream_t s) {
-  return launch<DKP>(flash_bwd_dkv_kernel<DKP>, p, p.Tk / BKV, B * p.H, 2 * BKV + 4 * BQ, s);
+int launch_dkv(const BwdParams& p, int B, cudaStream_t s) {
+  TileMaps maps;
+  const CUresult r = tile_maps(&maps, p, B, BQ, BKV, DKP);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  return static_cast<int>(launch(flash_bwd_dkv_wgmma_kernel<DKP>, p.Tk / BKV, B * p.H, BWD_THREADS,
+                                 DkvLayout<DKP>::BYTES, s, p, maps));
 }
 
 template <int DKP>
-cudaError_t launch_dq(const BwdParams& p, int B, cudaStream_t s) {
-  return launch<DKP>(flash_bwd_dq_kernel<DKP>, p, p.Tq / BQD, B * p.H, 2 * BQD + 4 * BKD, s);
+int launch_dq(const BwdParams& p, int B, cudaStream_t s) {
+  TileMaps maps;
+  const CUresult r = tile_maps(&maps, p, B, BQD, BKD, DKP);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  return static_cast<int>(launch(flash_bwd_dq_wgmma_kernel<DKP>, p.Tq / BQD, B * p.H, BWD_THREADS,
+                                 DqLayout<DKP>::BYTES, s, p, maps));
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
@@ -650,11 +1001,14 @@ bool shapes_ok(int B, int H, int Tq, int Tk, int dk, const void* seg_q, const vo
          (seg_q == nullptr) == (seg_kv == nullptr);
 }
 
-// Operands read with cp.async need 16-byte rows; outputs are written as float2.
+// The backward's operands come by TMA and bulk copies: 16-byte aligned
+// bases, strides in whole 16 bytes (m, l, di and the segment ids are read
+// 128 bytes at a time); outputs are written as float2.
 bool bwd_layout_ok(const BwdParams& p) {
   const Strides in[] = {p.sq, p.sk, p.sv, p.sdo};
   const Strides out[] = {p.sdq, p.sdk, p.sdv};
-  bool ok = aligned16(p.q) && aligned16(p.k) && aligned16(p.v) && aligned16(p.dout) &&
+  bool ok = aligned16(p.q) && aligned16(p.k) && aligned16(p.v) && aligned16(p.dout) && aligned16(p.m) &&
+            aligned16(p.l) && aligned16(p.di) && aligned16(p.seg_q) && aligned16(p.seg_kv) &&
             aligned8(p.dq) && aligned8(p.dk) && aligned8(p.dv);
   for (const Strides& s : in) ok = ok && s.b % 4 == 0 && s.h % 4 == 0 && s.t % 4 == 0;
   for (const Strides& s : out) ok = ok && s.t % 2 == 0;

@@ -6,7 +6,10 @@ form it is proven equal to (`pack_small_channels=False`,
 transposed conv (padding (k-u)//2) -> MRF stage, then leaky 0.01 ->
 conv_post k7 -> tanh in f32. The MRF stages run through `ops/mrf.py`:
 on the card, the Hopper kernel of the activations' dtype (bf16, or f32
-when `compute_dtype` is None, the default). The TPU's
+when `compute_dtype` is None, the default), at any width up to 256
+channels (a width that is not a multiple of 32 zero-padded to the next
+one), and the plain version above 256, as the JAX generator leaves such
+stages to XLA. The TPU's
 space-to-depth packing, subpixel/phase strategies and serving tables
 are re-layouts for the TPU and are not carried over.
 """
@@ -20,7 +23,8 @@ import torch
 from torch import nn
 
 from efficient_tts_tpu_torch.nn.layers import Conv1d, ConvTranspose1d, leaky_relu
-from efficient_tts_tpu_torch.ops.mrf import conv_order, kernel_weights, mrf_stage, mrf_stage_reference
+from efficient_tts_tpu_torch.ops.mrf import (conv_order, kernel_channels, kernel_weights, mrf_stage_any_width,
+                                             mrf_stage_reference)
 
 LRELU_SLOPE = 0.1
 
@@ -53,11 +57,14 @@ class MRFStage(nn.Module):
     [k, C_out, C_in] weight back to back in one flat f32 buffer, a bf16 copy
     made once at load time, and f32 biases [n_convs, C]. On the card each
     dtype's `KernelWeights` (the bf16 views, or the f32 weights' TF32 split,
-    with their TMA descriptors) is made on first use and kept until the
-    weights move or change."""
+    with their TMA descriptors; at a width that is not a multiple of 32, of
+    the weights and biases zero-padded to the next one) is made on first use
+    and kept until the weights or biases move or change. A stage wider than
+    256 channels runs the plain version (`ops/mrf.py:mrf_stage_any_width`)."""
 
     def __init__(self, channels: int, kernel_sizes, dilation_sizes):
         super().__init__()
+        self.channels = channels
         self.kernel_sizes = tuple(kernel_sizes)
         self.dilation_sizes = tuple(tuple(d) for d in dilation_sizes)
         self.shapes = [(k, channels, channels) for k, _ in conv_order(kernel_sizes, dilation_sizes)]
@@ -80,14 +87,15 @@ class MRFStage(nn.Module):
         return [w.view(s) for w, s in zip(flat.split([k * a * b for k, a, b in self.shapes]), self.shapes)]
 
     def kernel_weights(self, dtype):
-        """The stage's `KernelWeights` for `dtype`, made again whenever the
-        weights' buffer moves or changes in place (`load`, `load_state_dict`
-        and `copy_` each bump its version counter)."""
+        """The stage's `KernelWeights` for `dtype` (padded with the biases when
+        the width is not a multiple of 32), made again whenever the weights'
+        or the biases' buffer moves or changes in place (`load`,
+        `load_state_dict` and `copy_` each bump its version counter)."""
         ws = self.conv_weights(dtype)
-        key = (dtype, ws[0].device, ws[0].data_ptr(), ws[0]._version)
+        key = (dtype, ws[0].device, ws[0].data_ptr(), ws[0]._version, self.bias.data_ptr(), self.bias._version)
         kw = self._kernel_weights.get(dtype)
         if kw is None or kw[0] != key:
-            kw = self._kernel_weights[dtype] = (key, kernel_weights(ws))
+            kw = self._kernel_weights[dtype] = (key, kernel_weights(ws, self.bias))
         return kw[1]
 
     def forward(self, x, impl: str = "kernel"):
@@ -96,8 +104,9 @@ class MRFStage(nn.Module):
                                        self.dilation_sizes)
         if impl != "kernel":
             raise ValueError(f"mrf_impl must be 'kernel' or 'plain', got {impl!r}")
-        ws = self.kernel_weights(x.dtype) if x.device.type == "cuda" else self.conv_weights(x.dtype)
-        return mrf_stage(x, ws, self.bias, self.kernel_sizes, self.dilation_sizes)
+        on_kernel = x.device.type == "cuda" and kernel_channels(self.channels) is not None
+        ws = self.kernel_weights(x.dtype) if on_kernel else self.conv_weights(x.dtype)
+        return mrf_stage_any_width(x, ws, self.bias, self.kernel_sizes, self.dilation_sizes)
 
 
 class HiFiGANGenerator(nn.Module):

@@ -20,10 +20,11 @@ last stride, so the [B, T, H, dk] views that come out of the q/k/v linears
 they write o, dq, dk and dv as [B, H, T, dk] views of contiguous [B, T, H,
 dk] buffers, which reshape to [B, T, H*dk] without a copy.
 
-Precision on the card: every product is mma.sync TF32 with f32
-accumulation (q, k, v, do, p and ds rounded to TF32 as they enter it); the
-scale, mask, exp, di and every sum are f32. The plain versions here are
-f32 throughout.
+Precision on the card: every product is TF32 on the tensor cores with f32
+accumulation (mma.sync in the forward, wgmma in the dkv and dq kernels;
+q, k, v, do, p and ds rounded to TF32 to nearest, ties away, before a
+product reads them); the scale, mask, exp, di and every sum are f32. The
+plain versions here are f32 throughout.
 
 `flash_attention` is the entry point: on a CPU tensor it is the plain
 forward, so autograd differentiates the plain version; on a CUDA tensor
@@ -187,11 +188,15 @@ def _forward_kernel(q, k, v, segment_ids, sm_scale, residuals: bool):
 
 
 def _backward_kernels(q, k, v, o, m, l, do, segment_ids, sm_scale):
-    """di in PyTorch, then one launch each of the dkv and dq kernels."""
+    """di in PyTorch, then one launch each of the dkv and dq kernels. Their
+    tiles come by TMA and bulk copies, which need 16-byte aligned rows: do
+    and the segment ids are copied when they are not."""
     if do.dtype != torch.float32 or do.shape != o.shape:
         raise ValueError(f"flash_attention backward takes an f32 do of shape {tuple(o.shape)}")
     if not _kernel_layout_ok(do):
         do = do.contiguous()
+    if segment_ids is not None and (segment_ids.q.data_ptr() % 16 or segment_ids.kv.data_ptr() % 16):
+        segment_ids = SegmentIds(segment_ids.q.clone(), segment_ids.kv.clone())
     b, h, tq, dk = q.shape
     tk = k.shape[2]
     di = torch.sum(o * do, dim=-1).contiguous()

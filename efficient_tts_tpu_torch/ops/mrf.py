@@ -18,6 +18,17 @@ On the card the weights go in as `KernelWeights` only: the kernel's layout
 of each conv (bf16 as it is; f32 split into TF32 hi and lo, [2, k, C_out,
 C_in], for the 3xTF32 products) and its TMA descriptor, made once per
 weight (`kernel_weights`). `models/hifigan.py:MRFStage` caches its own.
+
+The kernels take C a multiple of 32 up to 256 (`mrf_stage`). A generator
+stage of any other width goes through `mrf_stage_any_width`: up to 256
+channels it runs the kernel at Cp = `kernel_channels(C)`, its weights and
+biases zero-padded once (`kernel_weights(ws, biases)`) and its activations
+per call, the result sliced back to C. That is exact in bf16 and in f32:
+the padded channels see only zero weights and biases, so they stay 0
+through every conv, leaky, residual and the average, and add only exact
+zeros to the real channels' sums. Above 256 channels, where the JAX
+generator leaves a stage to XLA, the stage takes `mrf_stage_reference`,
+counted in `launches` under ("plain", C).
 """
 
 from __future__ import annotations
@@ -31,8 +42,11 @@ import torch.nn.functional as F
 from efficient_tts_tpu_torch.nn.layers import leaky_relu
 
 LRELU_SLOPE = 0.1
-# conv launches of the CUDA kernels, by (dtype name, channels); only
-# `mrf_stage` adds
+# the kernels take C a multiple of CHANNEL_STEP up to MAX_KERNEL_CHANNELS
+MAX_KERNEL_CHANNELS, CHANNEL_STEP = 256, 32
+# conv launches of the CUDA kernels, by (dtype name, channels the kernel ran
+# at); only `mrf_stage` adds. `mrf_stage_any_width` adds ("plain", C) once for
+# each card stage too wide for the kernels.
 launches: dict[tuple[str, int], int] = {}
 
 _RESIDUAL, _ADD_SUM, _AVERAGE = 1, 2, 4
@@ -108,28 +122,63 @@ def split_tf32x3(w):
     return torch.stack([hi, round_tf32(w - hi)]).contiguous()
 
 
+def kernel_channels(c: int) -> int | None:
+    """The width the kernels run a C-channel stage at: C rounded up to a
+    multiple of 32, or None above 256 (the plain version's stage)."""
+    return -(-c // CHANNEL_STEP) * CHANNEL_STEP if c <= MAX_KERNEL_CHANNELS else None
+
+
+def pad_stage(weights, biases, cp: int):
+    """[k, C, C] conv weights and [n_convs, C] biases zero-padded to cp
+    channels (both C_out and C_in)."""
+    c = weights[0].shape[-1]
+    return [F.pad(w, (0, cp - c, 0, cp - c)) for w in weights], F.pad(biases, (0, cp - c))
+
+
+def pad_channels(x, cp: int):
+    """[B, T, C] activations zero-padded to cp channels."""
+    return F.pad(x, (0, cp - x.shape[-1]))
+
+
 @dataclasses.dataclass
 class KernelWeights:
     """A stage's weights as its kernel takes them, made once by
     `kernel_weights`: `weights` the [k, C, C] tensors (the plain version's),
     `kernel` their kernel layout (bf16: the same tensors; f32: the TF32
     split), and on the card `maps`, each conv's 128-byte TMA descriptor,
-    which holds the address of its `kernel` tensor."""
+    which holds the address of its `kernel` tensor. A stage whose width is
+    not a multiple of 32 is held padded to `kernel_channels(channels)`:
+    `weights` are the padded tensors, `biases` the padded [n_convs, Cp]
+    biases and `channels` the stage's own C (both None when not padded)."""
 
     weights: list
     kernel: list
     maps: list | None = None
+    biases: torch.Tensor | None = None
+    channels: int | None = None
 
 
-def kernel_weights(weights) -> KernelWeights:
+def kernel_weights(weights, biases=None) -> KernelWeights:
     """Prepare `weights` (one [k, C, C] tensor per conv, bf16 or f32) for the
-    kernels: f32 weights are split into TF32 hi and lo here. On a CUDA
-    device the TMA descriptors are encoded too; on the CPU `maps` stays
-    None."""
+    kernels: f32 weights are split into TF32 hi and lo here. A width C up to
+    256 that is not a multiple of 32 is zero-padded to `kernel_channels(C)`,
+    and then the stage's f32 `biases` [n_convs, C] are needed, padded with
+    it. On a CUDA device the TMA descriptors are encoded too; on the CPU
+    `maps` stays None."""
     weights = list(weights)
+    c = weights[0].shape[-1] if weights else 0
+    cp = kernel_channels(c)
+    if cp is None:
+        raise ValueError(f"the MRF kernels take up to {MAX_KERNEL_CHANNELS} channels, got {c}")
+    channels = None
+    if weights and cp != c:
+        if biases is None:
+            raise ValueError(f"a {c}-channel stage runs padded to {cp}: pass its biases")
+        channels = c
+        weights, biases = pad_stage(weights, biases, cp)
     f32 = bool(weights) and weights[0].dtype == torch.float32
     kernel = [split_tf32x3(w) for w in weights] if f32 else weights
-    kw = KernelWeights(weights, kernel)
+    kw = KernelWeights(weights, kernel, biases=biases if channels else None, channels=channels)
     if weights and weights[0].device.type == "cuda":
         lib = _lib()
         kw.maps = []
@@ -242,3 +291,23 @@ def mrf_stage(x, weights, biases, kernel_sizes, dilation_sizes):
 
     with torch.cuda.device(x.device):
         return stage_launches(x, n_branches, dilation_sizes, launch)
+
+
+def mrf_stage_any_width(x, weights, biases, kernel_sizes, dilation_sizes):
+    """One MRF stage of any width, as the generator runs it. A CPU tensor goes
+    through `mrf_stage_reference`. On the card, a stage of C up to 256 takes
+    the kernel: `weights` is `kernel_weights(ws, biases)`, and when it is
+    padded (C not a multiple of 32) x is zero-padded to its width, the
+    padded biases are used and the result is sliced back to C. A stage wider
+    than 256 (`weights` the [k, C, C] tensors) takes `mrf_stage_reference`,
+    counted as ("plain", C), before any launch."""
+    c = x.shape[-1]
+    if x.device.type == "cuda" and kernel_channels(c) is None:
+        launches["plain", c] = launches.get(("plain", c), 0) + 1
+        return mrf_stage_reference(x, weights, biases, kernel_sizes, dilation_sizes)
+    if isinstance(weights, KernelWeights) and weights.channels is not None:
+        if weights.channels != c:
+            raise ValueError(f"weights padded from {weights.channels} channels, activations have {c}")
+        cp = weights.weights[0].shape[-1]
+        return mrf_stage(pad_channels(x, cp), weights, weights.biases, kernel_sizes, dilation_sizes)[..., :c]
+    return mrf_stage(x, weights, biases, kernel_sizes, dilation_sizes)

@@ -5,7 +5,10 @@ the plain version against the JAX package). On the card it builds
 `csrc/mrf_stage.cu` and runs ragged lengths, every supported channel
 width and a one-branch stage, each against `mrf_stage_reference` on the
 same inputs, bf16 and f32, and a batch of three utterances whose length is
-not a multiple of the kernels' 128-position tile.
+not a multiple of the kernels' 128-position tile. Generator stages whose
+width is not a multiple of 32 (C = 8, 16, 48) run through `MRFStage` on the
+kernel at the next multiple of 32, and a stage wider than 256 on the plain
+version, each against the stage's plain path.
 """
 
 import numpy as np
@@ -120,3 +123,51 @@ def test_kernel_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError):
         x = torch.zeros((1, 32, 64), device=device, dtype=torch.bfloat16).transpose(1, 2)
         mrf.mrf_stage(x, kw, bs, ks, dils)
+
+
+def _module_stage(c, ks, dils, seed, device):
+    from efficient_tts_tpu_torch.models.hifigan import MRFStage
+
+    rng = np.random.default_rng(seed)
+    stage = MRFStage(c, ks, dils)
+    stage.load([(rng.standard_normal(s) / np.sqrt(s[0] * c)).astype(np.float32) for s in stage.shapes],
+               (0.1 * rng.standard_normal((len(stage.shapes), c))).astype(np.float32))
+    return stage.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [8, 16, 48])
+@pytest.mark.parametrize("ks,dils", [((3, 7, 11), ((1, 3, 5),) * 3), ((3,), ((1, 2),))])
+def test_padded_widths_run_the_kernel_through_the_stage(device, dtype, c, ks, dils):
+    """A stage of C channels, C not a multiple of 32, runs the kernel at the
+    next multiple of 32 (weights and biases zero-padded once, x per call),
+    and matches its plain path within the kernel's bounds above."""
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.utils.precision import full_f32
+
+    stage = _module_stage(c, ks, dils, seed=c, device=device)
+    g = torch.Generator().manual_seed(c + len(ks))
+    x = torch.randn((2, 300, c), generator=g).to(device, dtype)
+    mrf.reset_launches()
+    out = stage(x)
+    torch.cuda.synchronize()
+    cp = -(-c // 32) * 32
+    assert mrf.launches == {("f32" if dtype == torch.float32 else "bf16", cp): len(stage.shapes)}
+    assert out.shape == x.shape and out.dtype == dtype
+    with full_f32():
+        ref = stage(x, "plain")
+    tol = (2**-5, 1e-2) if dtype == torch.bfloat16 else (5e-4, 5e-5)
+    err = (out.float() - ref.float()).abs()
+    assert float(err.max()) <= tol[0] * float(ref.float().abs().max())
+    assert float((err.square().mean() / ref.float().square().mean()).sqrt()) <= tol[1]
+
+
+def test_stage_wider_than_the_kernel_takes_the_plain_version(device):
+    from efficient_tts_tpu_torch.ops import mrf
+
+    stage = _module_stage(288, (3,), ((1,),), seed=0, device=device)
+    x = torch.randn((1, 64, 288), generator=torch.Generator().manual_seed(0)).to(device, torch.bfloat16)
+    mrf.reset_launches()
+    out = stage(x)
+    assert mrf.launches == {("plain", 288): 1}
+    assert torch.equal(out, stage(x, "plain"))

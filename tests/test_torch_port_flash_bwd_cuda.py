@@ -12,7 +12,11 @@ the plain backward against the library's reference). On the card it builds
   * the dkv and dq kernels against `flash_attention_bwd_reference` fed the
     kernel's own residuals;
   * that the backward's gradients are bitwise the same from run to run (no
-    atomics).
+    atomics);
+  * lengths that are not a multiple of the kernels' 128-row tiles or cover
+    one tile only (T = 64, 192) and a long one (T = 1024), narrow heads (dk
+    = 8, 40), a query row whose segment matches no key (its p is uniform,
+    not NaN), and Tq != Tk.
 
 Tolerance: the kernels round q, k, v, do, p and ds to TF32 (2^-11
 relative); the plain versions are f32. On N(0, 1) inputs the gradients'
@@ -38,25 +42,33 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(b, h, t, dk, seed, device, layout="bthd"):
+def _inputs(b, h, t, dk, seed, device, layout="bthd", tk=None):
     """N(0, 1) q, k, v and do; "bthd" gives the [B, H, T, dk] views of [B, T,
-    H, dk] tensors that the q/k/v linears give."""
+    H, dk] tensors that the q/k/v linears give. k and v have tk rows."""
     g = torch.Generator().manual_seed(seed)
-    shape = (b, h, t, dk) if layout == "bhtd" else (b, t, h, dk)
-    xs = [torch.randn(shape, generator=g).to(device) for _ in range(4)]
-    if layout != "bhtd":
-        xs = [x.transpose(1, 2) for x in xs]
+    xs = []
+    for n in (t, tk or t, tk or t, t):
+        shape = (b, h, n, dk) if layout == "bhtd" else (b, n, h, dk)
+        x = torch.randn(shape, generator=g).to(device)
+        xs.append(x if layout == "bhtd" else x.transpose(1, 2))
     return xs
 
 
-def _segments(b, t, device, seed=0):
+def _segments(b, t, device, seed=0, tk=None, masked_row=False):
+    """Ragged ids (valid 1, pad 0) with one row all valid; for tk, kv ids
+    of that length cut at the same fraction. `masked_row` gives one query of
+    the last row id 2, which no key has."""
     from efficient_tts_tpu_torch.ops.flash_attention import SegmentIds
 
     g = torch.Generator().manual_seed(seed)
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
     lengths[0] = t
-    ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to(device)
-    return SegmentIds(ids, ids)
+    ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32)
+    ids_kv = ids if tk is None else (torch.arange(tk)[None, :] * t < lengths[:, None] * tk).to(torch.int32)
+    if masked_row:
+        ids = ids.clone()
+        ids[-1, t // 3] = 2
+    return SegmentIds(ids.to(device), ids_kv.to(device))
 
 
 def _check(out, ref, tol=GRAD_TOL):
@@ -120,6 +132,55 @@ def test_forward_residuals_and_kernels_against_the_plain_backward(device, dk):
     _check(o, o_ref, {"max_abs_over_range": 1e-2, "rel_rms": 2e-3})
     got = fa._backward_kernels(q, k, v, o, m, l, do, seg, 0.3)
     ref = fa.flash_attention_bwd_reference(q, k, v, o, m, l, do, seg, 0.3)
+    for out, r in zip(got, ref):
+        _check(out, r)
+
+
+@pytest.mark.parametrize("t", [64, 192, 1024])
+@pytest.mark.parametrize("dk", [8, 40])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_backward_at_one_tile_odd_tiles_and_long_rows(device, t, dk, segmented):
+    """T = 64 (one key block), 192 (three), 1024 (16 blocks of 64 keys, 32
+    query tiles); segmented runs hold a query whose segment has no key."""
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(2, 2, t, dk, seed=t + dk, device=device)
+    seg = _segments(2, t, device, seed=dk, masked_row=True) if segmented else None
+    scale = dk**-0.5
+    got = _grads(fa.flash_attention, q, k, v, do, seg, scale)
+    ref = _grads(fa.flash_attention_reference, q, k, v, do, seg, scale)
+    for out, r in zip(got, ref):
+        assert bool(torch.isfinite(out).all())
+        _check(out, r)
+
+
+@pytest.mark.parametrize("tq,tk", [(64, 192), (1024, 128), (192, 64)])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_backward_with_more_or_fewer_keys_than_queries(device, tq, tk, segmented):
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(2, 3, tq, 40, seed=tq + tk, device=device, tk=tk)
+    seg = _segments(2, tq, device, seed=tk, tk=tk, masked_row=True) if segmented else None
+    got = _grads(fa.flash_attention, q, k, v, do, seg, 0.2)
+    ref = _grads(fa.flash_attention_reference, q, k, v, do, seg, 0.2)
+    for out, r in zip(got, ref):
+        assert bool(torch.isfinite(out).all())
+        _check(out, r)
+
+
+def test_backward_takes_segment_ids_that_are_not_16_byte_aligned(device):
+    """Contiguous int32 ids starting 4 bytes into their storage: the kernels
+    read ids 16 bytes at a time, so the backward copies them first."""
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(2, 2, 128, 32, seed=5, device=device)
+    seg = _segments(2, 128, device, seed=5)
+    ids = torch.empty(2 * 128 + 1, dtype=torch.int32, device=device)
+    ids[1:] = seg.q.reshape(-1)
+    unaligned = fa.SegmentIds(ids[1:].view(2, 128), ids[1:].view(2, 128))
+    assert unaligned.q.data_ptr() % 16 != 0 and unaligned.q.is_contiguous()
+    got = _grads(fa.flash_attention, q, k, v, do, unaligned, 0.3)
+    ref = _grads(fa.flash_attention_reference, q, k, v, do, seg, 0.3)
     for out, r in zip(got, ref):
         _check(out, r)
 
