@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`efficient_tts_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases, each of which raises on failure:
   1. device: needs torch.cuda; prints `nvidia-smi` name and power limit;
   2. build: compiles `efficient_tts_tpu_torch/csrc/*.cu` with nvcc, and
      reads the MRF library's SASS (cuobjdump): wgmma (HGMMA) and TMA
-     (UTMALDG) instructions, and no mma.sync (HMMA); and the flash
-     library's SASS function by function: the backward's dkv and dq
-     kernels (every head-width instantiation) hold HGMMA and no HMMA;
+     (UTMALDG) instructions, and no mma.sync (HMMA); the flash library's
+     SASS function by function: the forward (every head width, one and two
+     consumer warpgroups) holds HGMMA and UTMALDG and no HMMA, the
+     backward's dkv and dq kernels HGMMA and no HMMA; and the W8A8
+     library's conv kernels (every width): integer wgmma (IGMMA) and
+     UTMALDG, and no integer mma.sync (IMMA);
   3. kernel vs plain version: every MRF stage of the V1 generator (C =
      256/128/64/32 at its main-path length for B=16, T2=512) through the
      Hopper kernel and through `mrf_stage_reference`, on the same bf16
      inputs; the flash attention forward at the EFTS-Transformer's shapes
      ([16, 4, 512, 96] without segment ids, [16, 4, 128, 96] with ragged
+     ones; in training [64, 4, 512, 96] and [64, 4, 128, 96] with ragged
      ones) against `flash_attention_reference`, on the same f32 inputs;
      the flash attention backward (dq, dk, dv through `FlashAttention`:
      one forward, one dkv and one dq launch) at the training shapes
@@ -81,9 +85,22 @@ Phases, each of which raises on failure:
      (forward, and its backward for the backward kernels) are timed by
      their device time (torch.profiler, 20 calls), since one call's
      CUDA-event time there is mostly the host's launch time, which is
-     printed beside it: each backward kernel's row is its own device time
-     from the profile, which must name it; bounds from
+     printed beside it: each kernel's row is its own device time per launch
+     the profile recorded (the profiler records a varying share of a
+     window's launches, at times none of a kernel's: such a window is
+     profiled again, up to 3 times; the forward then takes the time of
+     CUDA events around calls queued behind a sleep kernel, which its line
+     always gives, beside the per-call sum over every kernel of the window,
+     the earlier reading, and the kernels it holds); bounds from
      `efficient_tts_tpu_torch/utils/roofline.py`;
+  5b. with `--baseline DIR`, where DIR holds an earlier tree's
+     `flash_attention.cu` and `mrf_stage_int8.cu` with their headers (the
+     W8A8 conv taking the weight's pointer, not its tensor map, as before
+     the s8 wgmma design): both built with the same nvcc flags, then the
+     flash forward (device time per launch, queued-event time and host
+     time per call) at the four forward shapes and the W8A8 stage (CUDA
+     events) at the bench's shape, dynamic and static, timed in turns
+     (earlier, this tree, this tree, earlier), the outputs compared;
   6. a `{"kernels": [...]}` line, then the card line, then the last line
      `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
@@ -149,8 +166,16 @@ YAML_OPTIMIZER = {
 # the MRF kernels' names (csrc/mrf_stage.cu), as the profiler reports them
 MRF_KERNELS = {"bf16": "mrf_conv_wgmma_bf16_kernel", "f32": "mrf_conv_wgmma_tf32x3_kernel"}
 # the flash kernels' names (csrc/flash_attention.cu), as the profiler and
-# cuobjdump report them
+# cuobjdump report them, and their instantiations (head widths 32-128; the
+# forward also with one and two consumer warpgroups)
 FLASH_KERNELS = {"fwd": "flash_fwd_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel", "dq": "flash_bwd_dq_wgmma_kernel"}
+FLASH_FUNCTIONS = {"fwd": 8, "dkv": 4, "dq": 4}
+# the W8A8 conv kernel (csrc/mrf_stage_int8.cu), one instantiation per C = 32..256
+INT8_KERNEL, INT8_FUNCTIONS = "mrf_conv_int8_wgmma_kernel", 8
+# the flash forward's shapes: synthesis at B=16 (decoder, text encoder) and
+# the training batch (every call masked)
+FLASH_FWD_SHAPES = (("decoder", B, 512, False), ("text_encoder", B, 128, True),
+                    ("t512_training", TRAIN_B, 512, True), ("text_encoder_training", TRAIN_B, 128, True))
 # HiFi-GAN widths below V1's: the V2 generator's and the serving tests' narrow one
 NARROW_VOCODERS = {"hifigan_v2": 128, "hifigan_narrow": 32}
 
@@ -220,7 +245,44 @@ def host_us(torch, fn, n=50):
     return (t1 - t0) / n * 1e6
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
+def launch_ms(torch, fn, names, n=N_TIMED, tries=3):
+    """Device time per launch of each kernel whose name holds one of
+    `names`, over the launches torch.profiler recorded in `n` calls of
+    `fn`: {name: (ms per launch, launches recorded per call)}. The profiler
+    here records a varying share of a window's launches (at times none of
+    a kernel's), so a window that misses a kernel is profiled again, up to
+    `tries` windows; a kernel never seen is left out."""
+    out = {}
+    for _ in range(tries):
+        prof = device_profile(torch, fn, n)
+        for name in names:
+            named = [v_ for key, v_ in prof.items() if name in key]
+            seen = sum(v_[1] for v_ in named)
+            if name not in out and seen > 0:
+                out[name] = (sum(v_[0] for v_ in named) / seen, seen)
+        if len(out) == len(names):
+            break
+    return out
+
+
+def queued_ms(torch, fn, n=N_TIMED):
+    """Device time per call of `fn` from CUDA events around `n` calls queued
+    behind a 10 ms sleep kernel: the device runs them back to back, however
+    long the host takes to issue them (each must launch one kernel and
+    issue in well under 0.5 ms)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA", "FFMA")
 
 
 def read_sass(path):
@@ -233,8 +295,9 @@ def read_sass(path):
 
 
 def op_counts(sass):
-    """Counts of the wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
-    FFMA instructions in SASS text."""
+    """Counts of the wgmma (HGMMA; IGMMA for 8-bit integers), TMA load
+    (UTMALDG), mma.sync (HMMA; IMMA for integers) and FFMA instructions in
+    SASS text."""
     import re
 
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
@@ -418,8 +481,144 @@ def check_fixed(torch, wav, mel, t2, hop, odim):
         raise AssertionError(f"synthesize_fixed gave wav {tuple(wav.shape)} mel {tuple(mel.shape)}")
 
 
-def main() -> int:
+def build_tree(path):
+    """Compile `path`'s flash_attention.cu and mrf_stage_int8.cu (their
+    headers beside them) with the port's nvcc flags into path/_build, in
+    parallel; {name: ctypes.CDLL}."""
+    import ctypes
+    import subprocess
+
+    from efficient_tts_tpu_torch import _build
+
+    os.makedirs(os.path.join(path, "_build"), exist_ok=True)
+    jobs = {}
+    for name in ("flash_attention", "mrf_stage_int8"):
+        so = os.path.join(path, "_build", name + ".so")
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, os.path.join(path, name + ".cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {path}/{name}.cu:\n{out}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def int8_stage_pointer_weights(torch, lib, x, wq, scales, biases, act_scales):
+    """The W8A8 stage through the earlier C interface, which takes each
+    weight's pointer and no tensor map (`mrf_conv_int8(x, w, ...)`), in
+    `ops/mrf_int8.py:mrf_stage_int8`'s launch order."""
+    import ctypes
+
+    from efficient_tts_tpu_torch.ops import mrf
+
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    b, t, c = x.shape
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    slope = torch.tensor(mrf.LRELU_SLOPE, dtype=torch.bfloat16).item()
+    dynamic = act_scales is None
+    amax = torch.full((len(wq) + 1, b), 1e-12, device=x.device) if dynamic else None
+    row_of = {}
+    if dynamic:
+        if lib.mrf_absmax(x.data_ptr(), amax[0].data_ptr(), b, t, c, slope, stream) != 0:
+            raise RuntimeError("the earlier tree's mrf_absmax failed")
+        row_of[x.data_ptr()] = 0
+
+    def launch(src, i, d, res, dst, flags):
+        if dynamic:
+            s_in, s_stride, amax_out = amax[row_of[src.data_ptr()]].data_ptr(), 1, amax[i + 1].data_ptr()
+            row_of[dst.data_ptr()] = i + 1
+        else:
+            s_in, s_stride, amax_out = act_scales[i].data_ptr(), 0, None
+        rc = lib.mrf_conv_int8(src.data_ptr(), wq[i].data_ptr(), scales[i].data_ptr(), biases[i].data_ptr(),
+                               res.data_ptr() if res is not None else None, dst.data_ptr(), s_in, s_stride,
+                               amax_out, b, t, c, wq[i].shape[0], d, flags, len(ks), slope, stream)
+        if rc != 0:
+            raise RuntimeError(f"the earlier tree's mrf_conv_int8 failed: CUDA error {rc}")
+
+    return mrf.stage_launches(x, len(ks), ds, launch)
+
+
+def baseline_phase(torch, path, dev):
+    """An earlier tree's flash forward and W8A8 stage against this tree's,
+    timed in turns (earlier, this, this, earlier) in this process."""
+    import ctypes
+
+    from efficient_tts_tpu_torch.bench import mrf_fused as bench_mrf
+    from efficient_tts_tpu_torch.bench import time_ms
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.ops import mrf_int8
+
+    t0 = time.perf_counter()
+    libs = build_tree(path)
+    log({"phase": "baseline", "what": "build", "tree": path, "seconds": time.perf_counter() - t0})
+    real_lib = fa._lib
+    new_fa = real_lib()
+    old_fa = libs["flash_attention"]
+    old_fa.flash_attention_fwd.argtypes = new_fa.flash_attention_fwd.argtypes
+    old_fa.flash_attention_fwd.restype = ctypes.c_int
+    order = ("earlier", "this", "this", "earlier")
+    for name, fb, t, segmented in FLASH_FWD_SHAPES:
+        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented, b=fb)
+        training = fb == TRAIN_B
+
+        def run():
+            return fa._forward_kernel(q, k, v, seg, 96**-0.5, residuals=training)
+
+        times, queued, hosts, outs = {"earlier": [], "this": []}, {"earlier": [], "this": []}, {"earlier": [], "this": []}, {}
+        try:
+            for tree in order:
+                # both libraries take the same C interface: the wrapper is the same
+                fa._lib = (lambda: old_fa) if tree == "earlier" else real_lib
+                outs[tree] = run()
+                per_launch = launch_ms(torch, run, (FLASH_KERNELS["fwd"],)).get(FLASH_KERNELS["fwd"])
+                times[tree].append(per_launch[0] if per_launch else None)
+                queued[tree].append(queued_ms(torch, run))
+                hosts[tree].append(host_us(torch, run))
+        finally:
+            fa._lib = real_lib
+        a, b_ = (outs["earlier"][0], outs["this"][0]) if training else (outs["earlier"], outs["this"])
+        log({"phase": "baseline", "what": "flash_attention_fwd_" + name, "shape": list(q.shape),
+             "segment_ids": segmented, "residuals": training, "order": order,
+             "earlier_ms": times["earlier"], "this_ms": times["this"],
+             "earlier_queued_ms": queued["earlier"], "this_queued_ms": queued["this"],
+             "earlier_host_us": hosts["earlier"], "this_host_us": hosts["this"],
+             "this_vs_earlier": err_stats(b_, a)})
+        del q, k, v, seg, outs
+    old_int8 = libs["mrf_stage_int8"]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    old_int8.mrf_conv_int8.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, p]
+    old_int8.mrf_conv_int8.restype = ctypes.c_int
+    old_int8.mrf_absmax.argtypes = [p, p, i, i, i, f, p]
+    old_int8.mrf_absmax.restype = ctypes.c_int
+    c, t = INT8_SHAPES[-1]
+    st = bench_mrf.make_stage(B, t * c // bench_mrf.LANES, c, dev)
+    kw = mrf_int8.kernel_weights(st["wq"])
+    for kind, act in (("dynamic", None), ("static", st["act_scales"])):
+        fns = {"earlier": lambda: int8_stage_pointer_weights(torch, old_int8, st["x"], st["wq"], st["scales"], st["biases"], act),
+               "this": lambda: mrf_int8.mrf_stage_int8(st["x"], kw, st["scales"], st["biases"], (3, 7, 11),
+                                                       ((1, 3, 5),) * 3, act)}
+        times = {"earlier": [], "this": []}
+        for tree in order:
+            times[tree].append(time_ms(fns[tree])["median"])
+        equal = bool(torch.equal(fns["earlier"](), fns["this"]()))
+        log({"phase": "baseline", "what": f"mrf_stage_int8_{kind}_c{c}", "shape": [B, t, c], "order": order,
+             "earlier_ms": times["earlier"], "this_ms": times["this"], "outputs_equal": equal})
+        if not equal:
+            raise AssertionError(f"the W8A8 stage of {path} and of this tree differ ({kind} scales)")
+    del st, kw
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", help="a directory holding an earlier tree's flash_attention.cu and "
+                    "mrf_stage_int8.cu with their headers, timed in turns with this tree's (phase 5b)")
+    opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -461,15 +660,25 @@ def main() -> int:
     log({"phase": "build", "what": "mrf_stage SASS", **sass})
     if sass["HGMMA"] == 0 or sass["UTMALDG"] == 0 or sass["HMMA"] != 0:
         raise AssertionError(f"the MRF library is not wgmma fed by TMA: {sass}")
-    # the flash library function by function: the backward kernels are wgmma
-    # (HGMMA) with no mma.sync (HMMA) left; the forward is mma.sync
+    # the flash library function by function: every kernel is wgmma (HGMMA)
+    # with no mma.sync (HMMA) left, the forward's tiles by TMA (UTMALDG)
     flash_sass = sass_by_function(built["flash_attention"]["path"])
     for part in ("fwd", "dkv", "dq"):
         fns = {name: c for name, c in flash_sass.items() if FLASH_KERNELS[part] in name}
         log({"phase": "build", "what": f"flash_attention SASS, {FLASH_KERNELS[part]}", "functions": len(fns),
              **{op: [c[op] for c in fns.values()] for op in SASS_OPS}})
-        if part != "fwd" and (len(fns) != 4 or any(c["HGMMA"] == 0 or c["HMMA"] != 0 for c in fns.values())):
-            raise AssertionError(f"the flash {part} kernels are not 4 wgmma functions free of mma.sync: {fns}")
+        if (len(fns) != FLASH_FUNCTIONS[part] or any(c["HGMMA"] == 0 or c["HMMA"] != 0 for c in fns.values())
+                or (part == "fwd" and any(c["UTMALDG"] == 0 for c in fns.values()))):
+            raise AssertionError(f"the flash {part} kernels are not {FLASH_FUNCTIONS[part]} wgmma functions "
+                                 f"free of mma.sync: {fns}")
+    # the W8A8 conv kernels: integer wgmma (IGMMA) fed by TMA, no IMMA
+    int8_sass = {name: c for name, c in sass_by_function(built["mrf_stage_int8"]["path"]).items()
+                 if INT8_KERNEL in name}
+    log({"phase": "build", "what": f"mrf_stage_int8 SASS, {INT8_KERNEL}", "functions": len(int8_sass),
+         **{op: [c[op] for c in int8_sass.values()] for op in SASS_OPS}})
+    if len(int8_sass) != INT8_FUNCTIONS or any(c["IGMMA"] == 0 or c["UTMALDG"] == 0 or c["IMMA"] != 0
+                                               for c in int8_sass.values()):
+        raise AssertionError(f"the W8A8 kernels are not {INT8_FUNCTIONS} s8-wgmma functions fed by TMA: {int8_sass}")
 
     voc_cfg = HiFiGANConfig()
     efts_cfg = EftsCNNConfig(num_symbols=76, dropout_rate=0.0, use_masking=True)
@@ -492,11 +701,11 @@ def main() -> int:
             raise AssertionError(f"MRF kernel disagrees with its plain version at C={c}: {stats}")
         kernel_rows[c] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
         del x, ws, bs, out
-    # the flash kernel: the decoder's shape (no segment ids) and the text encoder's
-    flash_shapes = {False: T2, True: T1_TR}
+    # the flash forward: the decoder's shape (no segment ids), the text
+    # encoder's, and both at the training batch (masked)
     flash_rows = {}
-    for segmented, t in flash_shapes.items():
-        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented)
+    for name, fb, t, segmented in FLASH_FWD_SHAPES:
+        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented, b=fb)
         out = fa.flash_attention(q, k, v, seg, sm_scale=96**-0.5)
         torch.cuda.synchronize()
         stats = err_stats(out, fa.flash_attention_reference(q, k, v, seg, sm_scale=96**-0.5))
@@ -504,7 +713,7 @@ def main() -> int:
              "segment_ids": segmented, **stats, "tolerance": FLASH_TOL})
         if not within(stats, FLASH_TOL):
             raise AssertionError(f"flash kernel disagrees with its plain version at {tuple(q.shape)}: {stats}")
-        flash_rows[segmented] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
+        flash_rows[name] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
         del q, k, v, seg, out
     # the backward kernels at the training shapes: the T2 calls' length without
     # and with segment ids (training masks every call), the text encoder's
@@ -943,6 +1152,9 @@ def main() -> int:
     st = bench_mrf.make_stage(B, t * c // bench_mrf.LANES, c, dev)
     lib_ms = time_ms(cudnn_convs(torch, st["x"], st["w_bf16"], st["biases"], st["order"]))["median"]
     bound, bound_by, flops = stage_bound_ms(c, t, st["order"], "int8")
+    from efficient_tts_tpu_torch.utils.roofline import PEAK_BYTES, mrf_stage_launch_bytes
+
+    floor = mrf_stage_launch_bytes(B, t, c, ds)
     for kind, act, version in (("dynamic", None, "kernel int8"), ("static", st["act_scales"], "kernel int8-static")):
         args = (st["x"], st["wq"], st["scales"], st["biases"], ks, ds, act)
         p_ms = time_ms(lambda: mrf_int8.mrf_stage_int8_reference(*args), iters=5, warmup=1)["median"]
@@ -959,12 +1171,15 @@ def main() -> int:
             "library_call": "the stage's 18 F.conv1d (cuDNN) in bf16",
             "k1_bf16_ms": fused["times"]["kernel bf16"]["median"],
             "cudnn_bf16_stage_ms": fused["times"]["cudnn bf16"]["median"],
+            # not the bound: what 18 unfused launches must move (and the absmax read)
+            "launch_floor_ms": (floor["bytes"] + (floor["absmax_bytes"] if act is None else 0)) / PEAK_BYTES * 1e3,
         }
         kernels.append(row)
         log({"phase": "timing", "what": row["name"], "shape": [B, t, c], "tops": flops / (k_ms * 1e9),
              "bound_share": bound / k_ms, "peak_used": "int8 1979 TOP/s",
+             "launch_floor_share": row["launch_floor_ms"] / k_ms,
              **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "k1_bf16_ms",
-                                    "cudnn_bf16_stage_ms")}})
+                                    "cudnn_bf16_stage_ms", "launch_floor_ms")}})
     del st, args
 
     # the probe at [2^20, 128] x [128, 128] x 8: its times and the library's
@@ -992,43 +1207,54 @@ def main() -> int:
              **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
         del x, w
 
-    for segmented, t in flash_shapes.items():
-        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented)
+    for name, fb, t, segmented in FLASH_FWD_SHAPES:
+        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented, b=fb)
         scale = 96**-0.5
         mask = None if seg is None else (seg.q[:, None, :, None] == seg.kv[:, None, None, :])
+        training = fb == TRAIN_B  # the training path asks for the residuals m, l
         calls = {
-            "kernel": lambda: fa.flash_attention(q, k, v, seg, scale),
-            "plain": lambda: fa.flash_attention_reference(q, k, v, seg, scale),
+            "kernel": lambda: fa._forward_kernel(q, k, v, seg, scale, residuals=training),
+            "plain": lambda: fa.flash_attention_reference(q, k, v, seg, scale, return_residuals=training),
             "library": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
         }
-        # device time per call (the kernel's own time), and the CUDA-event time
-        # of one call, which includes the host's launch time when that is longer
-        dev_ms = {name: device_ms(torch, fn) for name, fn in calls.items()}
-        call_ms = {name: time_ms(fn) for name, fn in calls.items()}
+        # the kernel's device time per launch that the profile recorded (it
+        # may miss launches of the first calls); beside it the per-call sum
+        # over every kernel of the window, the reading of earlier rows, and
+        # the kernels the window held
+        prof = device_profile(torch, calls["kernel"], n=N_TIMED)
+        k_queued = queued_ms(torch, calls["kernel"])
+        per_launch = launch_ms(torch, calls["kernel"], (FLASH_KERNELS["fwd"],)).get(FLASH_KERNELS["fwd"])
+        # a profiler that never recorded the kernel leaves the queued-event time
+        k_dev, launches_seen = per_launch if per_launch else (k_queued, 0.0)
+        dev_ms = {name_: device_ms(torch, fn) for name_, fn in calls.items() if name_ != "kernel"}
+        call_ms = {name_: time_ms(fn) for name_, fn in calls.items()}
         k_host_us = host_us(torch, calls["kernel"])
-        ms = {name: dev_ms[name] if dev_ms[name] is not None else call_ms[name]["median"] for name in calls}
+        ms = {name_: dev_ms[name_] if dev_ms[name_] is not None else call_ms[name_]["median"] for name_ in dev_ms}
         bound, bound_by, flops = flash_bound_ms(q, seg)
+        path = "efts_transformer_training" if training else "efts_transformer"
+        n_launch = train_launches.get(("fwd", t, True), 0) if training else tr_flash.get(segmented, 0)
         row = {
-            "name": "flash_attention_fwd_" + ("text_encoder" if segmented else "decoder"), "route": "cuda",
+            "name": "flash_attention_fwd_" + name, "route": "cuda",
             "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
             "replaces": "efficient_tts_tpu/nn/attention.py:56",
             "pallas_call": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (jax 0.9.0)",
-            "launches": tr_flash.get(segmented, 0),
-            "launches_by_path": {"efts_transformer": tr_flash.get(segmented, 0),
-                                 # training masks every call: the same lengths, all with segment ids
-                                 "efts_transformer_training": train_launches.get(("fwd", t, True), 0)},
-            **flash_rows[segmented], "tolerance": FLASH_TOL, "precision": "tf32 operands, f32 softmax and sums",
-            "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": ms["library"], "timed_by": "device" if dev_ms["kernel"] is not None else "event",
+            "launches": n_launch, "launches_by_path": {path: n_launch},
+            **flash_rows[name], "tolerance": FLASH_TOL, "precision": "tf32 operands, f32 softmax and sums",
+            "ms": k_dev, "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": ms["library"], "library_call": "F.scaled_dot_product_attention, f32, boolean mask",
+            "timed_by": "device" if per_launch else "queued events", "launches_recorded_per_call": launches_seen,
         }
         kernels.append(row)
         log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "segment_ids": segmented,
-             "tflops": flops / (row["ms"] * 1e9), "bound_share": bound / row["ms"],
-             "call_ms": {name: v["median"] for name, v in call_ms.items()},
+             "residuals": training, "tflops": flops / (k_dev * 1e9), "bound_share": bound / k_dev,
+             "per_call_all_kernels_ms": sum(v_[0] for v_ in prof.values()), "queued_event_ms": k_queued,
+             "window_kernels": {key[:60]: v_ for key, v_ in prof.items()},
+             "call_ms": {name_: v_["median"] for name_, v_ in call_ms.items()},
              "kernel_call_ms_p25": call_ms["kernel"]["p25"], "kernel_call_ms_p75": call_ms["kernel"]["p75"],
              "kernel_host_us": k_host_us, "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
-             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
-        del q, k, v, seg, mask, calls
+             **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by",
+                                       "launches_recorded_per_call")}})
+        del q, k, v, seg, mask, calls, prof
 
     # the backward kernels at the training path's shapes (every call masked):
     # device time of each kernel, of its plain version from the same
@@ -1048,7 +1274,7 @@ def main() -> int:
         def kernel_bwd():
             return fa._backward_kernels(q, k, v, o, m, l, do, seg, scale)
 
-        prof = device_profile(torch, kernel_bwd, n=N_TIMED)
+        per_launch = launch_ms(torch, kernel_bwd, (FLASH_KERNELS["dkv"], FLASH_KERNELS["dq"]))
         call_ms = time_ms(kernel_bwd)
         # host time of one backward call: di, the 4 TMA maps each kernel's
         # entry encodes, and the two launches
@@ -1057,13 +1283,11 @@ def main() -> int:
         lib_ms = lib_dev if lib_dev is not None else time_ms(library_bwd)["median"]
         for part in ("dkv", "dq"):
             kname = FLASH_KERNELS[part]
-            named = [v_ for key, v_ in prof.items() if kname in key]
-            if not named:
-                raise AssertionError(f"the profile of the backward call does not name {kname}: {sorted(prof)}")
-            # device time per launch: the profiler may miss the first calls'
-            # launches, so divide by the launches it recorded, not the calls
-            launches_seen = sum(v_[1] for v_ in named)
-            k_dev = sum(v_[0] for v_ in named) / launches_seen
+            if kname not in per_launch:
+                raise AssertionError(f"three profiles of the backward call did not record {kname}")
+            # device time per launch: the profiler may miss launches, so
+            # divide by the launches it recorded, not the calls
+            k_dev, launches_seen = per_launch[kname]
 
             def plain(part=part):
                 return plain_bwd_part(torch, fa, part, q, k, v, o, m, l, do, seg, scale)
@@ -1092,7 +1316,11 @@ def main() -> int:
                  "backward_call_ms_p75": call_ms["p75"], "backward_call_host_us": bwd_host_us,
                  "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
                  **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
-        del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, prof
+        del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, per_launch
+
+    # 5b. an earlier tree's kernels in turns with this tree's
+    if opts.baseline:
+        baseline_phase(torch, os.path.abspath(opts.baseline), dev)
 
     # 6. result
     log({"kernels": kernels})

@@ -15,7 +15,8 @@ with CUDA events:
                       counterpart of the script's "xla-packed bf16");
   kernel bf16         K1's kernel, `ops/mrf.py:mrf_stage`;
   kernel int8         K2's kernel, `ops/mrf_int8.py:mrf_stage_int8`, with
-                      dynamic activation scales;
+                      dynamic activation scales (its weights' TMA
+                      descriptors made once, outside the timed calls);
   kernel int8-static  the same with `calibrate_act_scales` of the input;
 
 then the bf16 kernel's parity with the cuDNN stage and the int8 kernels'
@@ -80,11 +81,13 @@ def versions(st: dict) -> dict:
     w_ncw = [w.permute(1, 2, 0).contiguous() for w in st["w_bf16"]]
     b_bf16 = biases.to(torch.bfloat16)
     w_kernel = mrf.kernel_weights(st["w_bf16"])  # the TMA descriptors, made once as the generator does
+    wq_kernel = mrf_int8.kernel_weights(wq)  # and those of the int8 weights
     return {
         "cudnn bf16": lambda: cudnn_stage(x_ncw, w_ncw, b_bf16, st["order"]).transpose(1, 2),
         "kernel bf16": lambda: mrf.mrf_stage(x, w_kernel, biases, KS, DILS),
-        "kernel int8": lambda: mrf_int8.mrf_stage_int8(x, wq, scales, biases, KS, DILS),
-        "kernel int8-static": lambda: mrf_int8.mrf_stage_int8(x, wq, scales, biases, KS, DILS, st["act_scales"]),
+        "kernel int8": lambda: mrf_int8.mrf_stage_int8(x, wq_kernel, scales, biases, KS, DILS),
+        "kernel int8-static": lambda: mrf_int8.mrf_stage_int8(x, wq_kernel, scales, biases, KS, DILS,
+                                                              st["act_scales"]),
     }
 
 

@@ -28,9 +28,9 @@
 //
 // Operand precision: TF32. Every product runs on the tensor cores with f32
 // accumulation; q, k, v, do, the softmax weights p and ds are rounded to
-// TF32 to nearest, ties away (10 explicit mantissa bits: cvt.rna in the
-// forward, `round_tf32` in shared memory in the backward, before the first
-// wgmma reads them: a wgmma would otherwise truncate). Everything else
+// TF32 to nearest, ties away (10 explicit mantissa bits: `round_tf32` in
+// shared memory before the first wgmma reads a tile, since a wgmma would
+// otherwise truncate; cvt.rna for the forward's p in registers). Everything else
 // (scale, mask, max, exp, di, sums, the rescaling and 1/l) is f32. The JAX
 // reference computes in f32, so this is a stated rounding of about 2^-11
 // relative per operand; the port's plain versions are f32 throughout.
@@ -43,15 +43,35 @@
 // 96] they are bound by operations, 104 us and 78 us; at the text
 // encoder's [64, 4, 128, 96] by bytes, 22.7 us and 18.9 us.
 //
-// Forward design (mma.sync): one block of 4 warps per (batch, head, 64-row
-// query tile), each warp owning 16 query rows, whose q it reads once from
-// device memory into registers as TF32 fragments; 64-key K and V tiles
-// stream through shared memory by cp.async, double-buffered, in rows padded
-// to dk_pad + 4 floats (conflict-free fragment loads; dk is padded with zero
-// columns to 32, 64, 96 or 128). A score tile stays in registers and feeds
-// the next product directly: the keys of each 8-wide chunk are taken in the
-// order 0,2,4,6, 1,3,5,7, which turns the accumulator layout into the
-// A-operand layout with no shuffle. 100 KB at dk = 96, two blocks per SM.
+// Forward design: warp-specialized wgmma blocks, one per (batch, head, NC
+// x 64 query rows), NC consumer warpgroups (2 when the grid of 128-row
+// blocks fills the card's SMs, else 1) and a producer warpgroup.
+//  - The producer: one thread asks TMA for each consumer's 64 rows of q
+//    once, and for each BN-key tile (64 keys up to dk_pad 96, 32 at 128) of
+//    K into a 3-slot ring and of V into one of 2 landing tiles, as boxes of
+//    32 columns in the 128-byte-swizzled layout (head-dim padding
+//    zero-filled). As a tile lands the warpgroup rounds K to TF32 in place,
+//    writes V's transpose, rounded, into one of 2 stages and copies the
+//    keys' segment ids beside it; then the thread asks for the tile after
+//    next, so two tiles load while one is consumed. The transpose is needed
+//    because a TF32 wgmma reads B K-major only (no transpose bit for .tf32,
+//    and TMA does not transpose 4-byte elements) and o = p v contracts over
+//    the keys; its rows are stored in the order 0,2,4,6,1,3,5,7, which makes
+//    the s accumulator the A fragment of p v with no shuffle.
+//  - A consumer rounds its q tile in place once, then per tile: s = q k^T
+//    by SS wgmma (M = 64, N = BN, K = DKP, both operands K-major as they
+//    land); the scale, segment mask (ids per key column) and online softmax
+//    in f32 on the accumulator registers; p rounded by cvt.rna into A
+//    fragments; o = alpha o, then o += p v^T by RS wgmma (N = DKP, K = BN).
+//    Each product is waited for (wgmma.wait_group 0) before its registers
+//    are read or changed: the p fragments stay untouched while in flight,
+//    and the rescaling of o waits for the product before it.
+// Shared memory at DKP = 96 with NC = 2: 223,296 bytes (K 72 KB, the V
+// landing tiles 48 KB, q 48 KB, V^T 48.5 KB); one block per SM. Per 64 x 64
+// (query, key) tile a consumer reads q, K and V^T from shared memory (72
+// KB), and the producer lands, rounds and transposes K and V once for the
+// NC consumers (144 KB a tile): shared memory, not the tensor cores, bounds
+// this design as it bounds the backward's.
 //
 // Backward design: warp-specialized wgmma blocks of 256 threads, one per
 // (batch, head, 64-key block) for dkv and per (batch, head, 64-row query
@@ -96,6 +116,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "mma_common.cuh"
@@ -103,10 +124,12 @@
 
 namespace {
 
-constexpr int BM = 64;        // forward: query rows per block
-constexpr int BN = 64;        // forward: keys per K/V tile
-constexpr int THREADS = 128;  // forward: 4 warps x 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
+
+// (b, h, t) strides in elements of q, k, v, do, o and the three gradients
+struct Strides {
+  long long b, h, t;
+};
 
 struct Params {
   const float* q;
@@ -118,13 +141,8 @@ struct Params {
   float* m_out;  // [B, H, Tq] row maxima, or null
   float* l_out;  // [B, H, Tq] row sums, or null
   int H, Tq, Tk, dk;
-  long long sq_b, sq_h, sq_t, sk_b, sk_h, sk_t, sv_b, sv_h, sv_t, so_b, so_h, so_t;
+  Strides sq, sk, sv, so;
   float sm_scale, mask_value;
-};
-
-// (b, h, t) strides in elements of q, k, v, do and the three gradients
-struct Strides {
-  long long b, h, t;
 };
 
 struct BwdParams {
@@ -151,16 +169,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }
 
-// c += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -169,188 +177,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copy `nrows` rows of `vecs` 16-byte vectors from device memory (row stride
-// `stride` floats, first row `row0`) into shared rows of LD floats.
-template <int LD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long stride, int row0,
-                                          int nrows, int vecs, int tid) {
-  for (int i = tid; i < nrows * vecs; i += THREADS) {
-    const int r = i / vecs, c = (i - r * vecs) * 4;
-    cp_async16(dst + r * LD + c, src + static_cast<long long>(row0 + r) * stride + c);
-  }
-}
-
-// Zero columns dk..DKP of `rows` shared rows once; cp.async never writes them.
-template <int DKP>
-__device__ __forceinline__ void zero_pad_columns(float* smem, int rows, int dk, int tid) {
-  constexpr int LD = DKP + 4;
-  const int padc = DKP - dk;
-  for (int i = tid; i < rows * padc; i += THREADS) smem[(i / padc) * LD + dk + i % padc] = 0.f;
-}
-
-// Accumulator (rows g, g+8 at columns 2t, 2t+1) as an A fragment whose k
-// order is 0,2,4,6,1,3,5,7; the B operand's rows must follow that order.
-__device__ __forceinline__ void acc_as_a(uint32_t (&a)[4], const float (&c)[4]) {
-  a[0] = tf32(c[0]);
-  a[1] = tf32(c[2]);
-  a[2] = tf32(c[1]);
-  a[3] = tf32(c[3]);
-}
-
-// Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4): A holds rows g
-// and g+8 at columns t and t+4; B holds column g at rows t and t+4; the
-// accumulator holds rows g and g+8 at columns 2t and 2t+1.
-template <int DKP>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
-  constexpr int LD = DKP + 4;  // padded shared row (floats)
-  constexpr int KS = DKP / 8;  // k8 steps of q.k, n8 tiles of o
-  constexpr int NT = BN / 8;   // n8 tiles of a score tile, k8 steps of p.v
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;              // [2][BN][LD]
-  float* Vs = Ks + 2 * BN * LD;  // [2][BN][LD]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
-  const int q0 = blockIdx.x * BM;
-  const float* qb = p.q + b * p.sq_b + h * p.sq_h;
-  const float* kb = p.k + b * p.sk_b + h * p.sk_h;
-  const float* vb = p.v + b * p.sv_b + h * p.sv_h;
-  const int vecs = p.dk / 4;  // 16-byte vectors per row
-
-  zero_pad_columns<DKP>(smem, 4 * BN, p.dk, tid);
-  load_rows<LD>(Ks, kb, p.sk_t, 0, BN, vecs, tid);
-  load_rows<LD>(Vs, vb, p.sv_t, 0, BN, vecs, tid);
-  cp_async_commit();
-
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const bool seg = p.seg_q != nullptr;
-  const int* skv = seg ? p.seg_kv + static_cast<size_t>(b) * p.Tk : nullptr;
-  const int id_a = seg ? p.seg_q[static_cast<size_t>(b) * p.Tq + row_a] : 0;
-  const int id_b = seg ? p.seg_q[static_cast<size_t>(b) * p.Tq + row_b] : 0;
-
-  // this warp's Q rows as TF32 A fragments, read once straight from device
-  // memory; zeros past dk
-  uint32_t qf[KS][4];
-  const float* qa = qb + static_cast<long long>(row_a) * p.sq_t;
-  const float* qr = qb + static_cast<long long>(row_b) * p.sq_t;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bool in = ks * 8 < p.dk;
-    qf[ks][0] = tf32(in ? qa[ks * 8 + t] : 0.f);
-    qf[ks][1] = tf32(in ? qr[ks * 8 + t] : 0.f);
-    qf[ks][2] = tf32(in ? qa[ks * 8 + t + 4] : 0.f);
-    qf[ks][3] = tf32(in ? qr[ks * 8 + t + 4] : 0.f);
-  }
-  float acc[KS][4];
-#pragma unroll
-  for (int i = 0; i < KS; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  const int n_tiles = p.Tk / BN;
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      const int buf = (j + 1) & 1;
-      load_rows<LD>(Ks + buf * BN * LD, kb, p.sk_t, (j + 1) * BN, BN, vecs, tid);
-      load_rows<LD>(Vs + buf * BN * LD, vb, p.sv_t, (j + 1) * BN, BN, vecs, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Kt = Ks + (j & 1) * BN * LD;
-    const float* Vt = Vs + (j & 1) * BN * LD;
-
-    // s = q k^T for this warp's 16 rows and the tile's 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float* kr = Kt + (nt * 8 + g) * LD + ks * 8 + t;
-        mma_tf32(s[nt], qf[ks], tf32(kr[0]), tf32(kr[4]));
-      }
-    }
-
-    // scale, then the segment mask, then the online softmax (rows g, g+8)
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float x_a = s[nt][e] * p.sm_scale, x_b = s[nt][2 + e] * p.sm_scale;
-        if (seg) {
-          const int sk = skv[j * BN + nt * 8 + 2 * t + e];
-          x_a += (id_a == sk) ? 0.f : p.mask_value;
-          x_b += (id_b == sk) ? 0.f : p.mask_value;
-        }
-        s[nt][e] = x_a;
-        s[nt][2 + e] = x_b;
-        mx_a = fmaxf(mx_a, x_a);
-        mx_b = fmaxf(mx_b, x_b);
-      }
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
-    // exp(x) as exp2(x * log2 e): one ex2 instead of expf's longer sequence
-    const float al_a = exp2f((m_a - mn_a) * kLog2e), al_b = exp2f((m_b - mn_b) * kLog2e);
-    float rs_a = 0.f, rs_b = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f((s[nt][e] - mn_a) * kLog2e);
-        s[nt][2 + e] = exp2f((s[nt][2 + e] - mn_b) * kLog2e);
-        rs_a += s[nt][e];
-        rs_b += s[nt][2 + e];
-      }
-    }
-    l_a = al_a * l_a + quad_sum(rs_a);
-    l_b = al_b * l_b + quad_sum(rs_b);
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int dn = 0; dn < KS; ++dn) {
-      acc[dn][0] *= al_a;
-      acc[dn][1] *= al_a;
-      acc[dn][2] *= al_b;
-      acc[dn][3] *= al_b;
-    }
-
-    // o += p v: chunk kc's A column t is key 2t and column t+4 is key 2t+1
-#pragma unroll
-    for (int kc = 0; kc < NT; ++kc) {
-      uint32_t pa[4];
-      acc_as_a(pa, s[kc]);
-      const float* vr = Vt + (kc * 8 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dn = 0; dn < KS; ++dn) mma_tf32(acc[dn], pa, tf32(vr[dn * 8]), tf32(vr[LD + dn * 8]));
-    }
-    __syncthreads();  // the next iteration's loads overwrite this tile's buffer
-  }
-
-  const float inv_a = (l_a == 0.f) ? 1.f : 1.f / l_a;
-  const float inv_b = (l_b == 0.f) ? 1.f : 1.f / l_b;
-  float* ob = p.o + b * p.so_b + h * p.so_h;
-#pragma unroll
-  for (int dn = 0; dn < KS; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (dn * 8 >= p.dk) break;
-    *reinterpret_cast<float2*>(ob + row_a * p.so_t + col) = make_float2(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
-    *reinterpret_cast<float2*>(ob + row_b * p.so_t + col) = make_float2(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
-  }
-  // the residuals of the backward; the quad's four threads hold the same m, l
-  if (p.m_out != nullptr && t == 0) {
-    const size_t base = static_cast<size_t>(blockIdx.y) * p.Tq;
-    p.m_out[base + row_a] = m_a;
-    p.m_out[base + row_b] = m_b;
-    p.l_out[base + row_a] = l_a;
-    p.l_out[base + row_b] = l_b;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -924,6 +750,293 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   store_rows<DKP>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.t, dqa, q0, p.hd, warp, g, t);
 }
 
+// ---------------------------------------------------------------------------
+// The forward kernel: warpgroup MMA (wgmma), K and V tiles by TMA
+
+constexpr int FWD_BM = 64;  // forward: query rows per consumer warpgroup (the wgmma's M)
+
+// Forward tiles come by TMA in the 128-byte-swizzled K-major layout: an
+// R-row tile of DKP columns is DKP / 32 chunks, each R rows of 128 bytes (32
+// floats) in TMA's SWIZZLE_128B order (16-byte unit u of row r stored at
+// unit u ^ (r % 8)), chunks R * 32 floats apart, each on a 1024-byte
+// boundary. (A box of the backward's plane layout is 16 bytes wide, which
+// TMA moves as many small requests.) A wgmma k step (8 columns, 32 bytes)
+// starts (k % 4) * 32 bytes into chunk k / 4.
+__device__ __forceinline__ uint64_t sw128_desc(const float* tile, int k_step, int rows) {
+  return desc_sw128(smem_u32(tile + (k_step >> 2) * rows * 32) + (k_step & 3) * 32);
+}
+
+// One R-row tile (rows [row, row + R) of head h of batch b) of a
+// `swizzled_map`, DKP / 32 boxes of 32 columns, into shared memory, its
+// bytes counted on `bar`; columns past the head width come as zeros.
+template <int DKP>
+__device__ __forceinline__ void tma_rows(float* dst, const CUtensorMap* map, uint64_t* bar, int rows, int row,
+                                         int h, int b) {
+#pragma unroll
+  for (int i = 0; i < DKP / 32; ++i)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, "
+        "%6}], [%2];\n" ::"r"(smem_u32(dst + i * rows * 32)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(32 * i), "r"(row), "r"(h), "r"(b)
+        : "memory");
+}
+
+// `round_transpose`'s transpose, rounded, out of place, from an R-row
+// swizzled tile: each 8 rows r0..r7 of `tile` become columns r0, r2, r4, r6
+// | r1, r3, r5, r7 of `tr` (two planes), a plane tile of DKP rows and R / 4
+// planes, DKP * 4 + 4 floats apart. A warp takes one 16-byte column unit of
+// 32 rows: its reads fall on 8 different units of each 8 rows, its writes
+// on 32 different banks.
+template <int R, int DKP>
+__device__ __forceinline__ void transpose_rows(const float* tile, float* tr, int tid) {
+  constexpr int PT = DKP * 4 + 4;
+#pragma unroll
+  for (int it = 0; it < R * DKP / (4 * WG); ++it) {
+    const int i = tid + it * WG, r = i % R, pl = i / R;
+    const float* s = tile + (pl >> 3) * R * 32 + r * 32 + (((pl & 7) ^ (r & 7)) << 2);
+    const float4 v = round_tf32x4(*reinterpret_cast<const float4*>(s));
+    float* d = tr + ((r >> 3) * 2 + (r & 1)) * PT + pl * 16 + ((r >> 1) & 3);
+    d[0] = v.x;
+    d[4] = v.y;
+    d[8] = v.z;
+    d[12] = v.w;
+  }
+}
+
+// keeps the compiler from reusing an A fragment's registers before the
+// wgmma that reads them is complete
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// `n` threads (whole warps) meet at named barrier `id` (1-15; 0 is __syncthreads)
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared memory of the forward, in floats, from a 1024-byte boundary: a
+// ring of 3 BN-key K tiles (swizzled, rounded to TF32 in place: a tile is
+// held from its load until the consumers are done with it); 2 landing
+// tiles of V (held until transposed); NC consumers' q tiles (64 rows each,
+// swizzled); 2 stages of V's transpose (rounded, rows in `transpose_rows`'
+// order) and the keys' segment ids; the mbarriers (per K slot: done; per
+// landing tile: landed; per stage: full; q's). 223,296 bytes at DKP = 96
+// with NC = 2; 181,824 at DKP = 128 (BN = 32).
+template <int DKP, int NC>
+struct FwdLayout {
+  static constexpr int BN = DKP <= 96 ? 64 : 32;
+  static constexpr int RK = 3;  // K slots
+  static constexpr int S = 2;   // V landing tiles, and stages of V^T
+  static constexpr int PT = DKP * 4 + 4;
+  static constexpr int Q = FWD_BM * DKP;  // one consumer's q
+  static constexpr int KV = BN * DKP;     // one K or V tile
+  static constexpr int VT = (BN / 4) * PT;
+  static constexpr int BYTES = ((RK + S) * KV + NC * Q + S * (VT + BN)) * 4 + (RK + 2 * S + 1) * 8 + 1024;
+};
+
+// The TMA maps of a forward call's operands (`swizzled_map`): q in boxes
+// of 64 rows, K and V in boxes of BN rows
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+// o (and m, l) for one (batch, head, NC x 64 query rows); the design is in
+// the header. Consumer warpgroups 0..NC-1, the producer warpgroup NC; a
+// consumer whose rows lie past Tq leaves at once. Tile j: K in slot j % 3,
+// V in landing tile j % 2, V^T and ids in stage j % 2. The producer issues
+// tile j + 2 once tile j + 1 is processed and the consumers are done with
+// tile j - 1 (its K slot), so two tiles load while one is consumed.
+template <int DKP, int NC>
+__global__ void __launch_bounds__((NC + 1) * WG, 1)
+    flash_fwd_kernel(const Params p, const __grid_constant__ FwdMaps maps) {
+  using L = FwdLayout<DKP, NC>;
+  constexpr int BN = L::BN, RK = L::RK, S = L::S;
+  extern __shared__ __align__(128) unsigned char fwd_smem[];  // rounded up to 1024 bytes: BYTES holds the slack
+  float* Ks = reinterpret_cast<float*>(fwd_smem + ((1024u - (smem_u32(fwd_smem) & 1023u)) & 1023u));
+  float* land_v = Ks + RK * L::KV;
+  float* Qs = land_v + S * L::KV;
+  float* VTs = Qs + NC * L::Q;
+  int* segs = reinterpret_cast<int*>(VTs + S * L::VT);
+  uint64_t* done = reinterpret_cast<uint64_t*>(segs + S * BN);  // [RK]: the consumers are done with a K slot
+  uint64_t* landed = done + RK;                                  // [S]: tile j's K and V have landed
+  uint64_t* full = landed + S;                                   // [S]: tile j is rounded and transposed
+  uint64_t* q_bar = full + S;
+  auto k_of = [&](int j) { return Ks + (j % RK) * L::KV; };
+  auto vt_of = [&](int j) { return VTs + (j % S) * L::VT; };
+  auto seg_of = [&](int j) { return segs + (j % S) * BN; };
+  // wait until the consumers are done with tile i
+  auto wait_done = [&](int i) { mbar_wait(&done[i % RK], (i / RK) & 1); };
+
+  const int tid = threadIdx.x, lt = tid & (WG - 1), wg = tid / WG;
+  const int b = blockIdx.y / p.H, h = blockIdx.y - b * p.H;
+  const int q0 = blockIdx.x * (NC * FWD_BM);
+  const int n_act = min(NC, (p.Tq - q0) / FWD_BM);  // consumers with rows
+  const int n_tiles = p.Tk / BN;
+  const bool seg = p.seg_q != nullptr;
+  if (tid == 0) {
+    for (int s = 0; s < RK; ++s) mbar_init(&done[s], n_act * WG);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&full[s], WG);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are initialised
+
+  if (wg == NC) {  // producer
+    auto issue = [&](int j) {
+      uint64_t* bar = &landed[j % S];
+      mbar_expect_tx(bar, 2 * L::KV * 4);
+      tma_rows<DKP>(k_of(j), &maps.k, bar, BN, j * BN, h, b);
+      tma_rows<DKP>(land_v + (j % S) * L::KV, &maps.v, bar, BN, j * BN, h, b);
+    };
+    if (lt == 0) {
+      mbar_expect_tx(q_bar, n_act * L::Q * 4);
+      for (int w = 0; w < n_act; ++w) tma_rows<DKP>(Qs + w * L::Q, &maps.q, q_bar, FWD_BM, q0 + w * FWD_BM, h, b);
+      for (int j = 0; j < S && j < n_tiles; ++j) issue(j);
+    }
+    const int* skv = seg ? p.seg_kv + static_cast<size_t>(b) * p.Tk : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      mbar_wait(&landed[j % S], (j / S) & 1);
+      if (j >= S) wait_done(j - S);  // stage j % S (V^T, ids) is free
+      round_planes<L::KV>(k_of(j), lt);
+      transpose_rows<BN, DKP>(land_v + (j % S) * L::KV, vt_of(j), lt);
+      if (seg && lt < BN) seg_of(j)[lt] = skv[j * BN + lt];
+      fence_proxy_async();
+      named_barrier(NC + 1, WG);  // the landing tile is read
+      mbar_arrive(&full[j % S]);
+      // tile j + 2 goes into landing tile j % 2 and K slot (j + 2) % 3,
+      // which held tile j - 1
+      if (lt == 0 && j + S < n_tiles) {
+        if (j >= 1) wait_done(j - 1);
+        issue(j + S);
+      }
+    }
+    return;
+  }
+  if (wg >= n_act) return;
+
+  // consumer: its q tile, rounded in place once
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* Qw = Qs + wg * L::Q;
+  mbar_wait(q_bar, 0);
+  round_planes<L::Q>(Qw, lt);
+  fence_proxy_async();
+  named_barrier(1 + wg, WG);
+
+  const int row_a = q0 + wg * FWD_BM + 16 * warp + g, row_b = row_a + 8;
+  const int id_a = seg ? p.seg_q[static_cast<size_t>(b) * p.Tq + row_a] : 0;
+  const int id_b = seg ? p.seg_q[static_cast<size_t>(b) * p.Tq + row_b] : 0;
+  float o[DKP / 2];
+#pragma unroll
+  for (int i = 0; i < DKP / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    mbar_wait(&full[j % S], (j / S) & 1);
+
+    // s = q k^T: rows g and g + 8 of this warp's 16, columns 8 jn + 2 t + e
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DKP / 8; ++ks)
+      wgmma_ss<BN, true>(s, sw128_desc(Qw, ks, FWD_BM), sw128_desc(k_of(j), ks, BN));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(s[i]);
+
+    // scale, then the segment mask, then the online softmax
+    const int* sk = seg_of(j);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int2 id2 = seg ? *reinterpret_cast<const int2*>(sk + 8 * jn + 2 * t) : make_int2(0, 0);
+      const int idk[2] = {id2.x, id2.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x_a = s[4 * jn + e] * p.sm_scale, x_b = s[4 * jn + 2 + e] * p.sm_scale;
+        if (seg) {
+          x_a += (id_a == idk[e]) ? 0.f : p.mask_value;
+          x_b += (id_b == idk[e]) ? 0.f : p.mask_value;
+        }
+        s[4 * jn + e] = x_a;
+        s[4 * jn + 2 + e] = x_b;
+        mx_a = fmaxf(mx_a, x_a);
+        mx_b = fmaxf(mx_b, x_b);
+      }
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    // exp(x) as exp2(x * log2 e): one ex2 instead of expf's longer sequence
+    const float al_a = exp2f((m_a - mn_a) * kLog2e), al_b = exp2f((m_b - mn_b) * kLog2e);
+    float rs_a = 0.f, rs_b = 0.f;
+    // p in f32 for the sums, rounded (cvt.rna) into the A fragments of p v,
+    // whose B rows are in `transpose_rows`' order
+    uint32_t pa[BN / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * jn + e] = exp2f((s[4 * jn + e] - mn_a) * kLog2e);
+        s[4 * jn + 2 + e] = exp2f((s[4 * jn + 2 + e] - mn_b) * kLog2e);
+        rs_a += s[4 * jn + e];
+        rs_b += s[4 * jn + 2 + e];
+      }
+      pa[jn][0] = tf32(s[4 * jn]);
+      pa[jn][1] = tf32(s[4 * jn + 2]);
+      pa[jn][2] = tf32(s[4 * jn + 1]);
+      pa[jn][3] = tf32(s[4 * jn + 3]);
+    }
+    l_a = al_a * l_a + quad_sum(rs_a);
+    l_b = al_b * l_b + quad_sum(rs_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    // o was complete at the last wait: rescale it, then o += p v
+#pragma unroll
+    for (int jd = 0; jd < DKP / 8; ++jd) {
+      o[4 * jd] *= al_a;
+      o[4 * jd + 1] *= al_a;
+      o[4 * jd + 2] *= al_b;
+      o[4 * jd + 3] *= al_b;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BN / 8; ++ks) wgmma_rs_tf32<DKP>(o, pa[ks], plane_desc(vt_of(j), ks, L::PT));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < DKP / 2; ++i) fence_operand(o[i]);
+#pragma unroll
+    for (int ks = 0; ks < BN / 8; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_operand(pa[ks][i]);
+    }
+    mbar_arrive(&done[j % RK]);  // tile j's K slot and stage are read
+  }
+
+  const float inv_a = (l_a == 0.f) ? 1.f : 1.f / l_a;
+  const float inv_b = (l_b == 0.f) ? 1.f : 1.f / l_b;
+  float* ob = p.o + b * p.so.b + h * p.so.h;
+#pragma unroll
+  for (int jd = 0; jd < DKP / 8; ++jd) {
+    if (jd * 8 >= p.dk) break;
+    const int col = jd * 8 + 2 * t;
+    *reinterpret_cast<float2*>(ob + row_a * p.so.t + col) = make_float2(o[4 * jd] * inv_a, o[4 * jd + 1] * inv_a);
+    *reinterpret_cast<float2*>(ob + row_b * p.so.t + col) =
+        make_float2(o[4 * jd + 2] * inv_b, o[4 * jd + 3] * inv_b);
+  }
+  // the residuals of the backward; the quad's four threads hold the same m, l
+  if (p.m_out != nullptr && t == 0) {
+    const size_t base = static_cast<size_t>(blockIdx.y) * p.Tq;
+    p.m_out[base + row_a] = m_a;
+    p.m_out[base + row_b] = m_b;
+    p.l_out[base + row_a] = l_a;
+    p.l_out[base + row_b] = l_b;
+  }
+}
+
 // Launch `kernel` on a (tiles, B * H) grid of `threads` with `smem` bytes of
 // dynamic shared memory; the limit is set per device, so it is set on every
 // launch that needs it.
@@ -937,11 +1050,6 @@ cudaError_t launch(void (*kernel)(A...), int tiles, int BH, int threads, size_t 
   }
   kernel<<<dim3(tiles, BH), threads, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-template <int DKP>
-cudaError_t launch_fwd(const Params& p, int B, cudaStream_t s) {
-  return launch(flash_fwd_kernel<DKP>, p.Tq / BM, B * p.H, THREADS, 4 * BN * (DKP + 4) * sizeof(float), s, p);
 }
 
 // The TMA map of one [B, H, T, hd] f32 operand (element strides `st`, unit
@@ -989,6 +1097,65 @@ int launch_dq(const BwdParams& p, int B, cudaStream_t s) {
   if (r != CUDA_SUCCESS) return static_cast<int>(r);
   return static_cast<int>(launch(flash_bwd_dq_wgmma_kernel<DKP>, p.Tq / BQD, B * p.H, BWD_THREADS,
                                  DqLayout<DKP>::BYTES, s, p, maps));
+}
+
+// The TMA map of one [B, H, T, hd] f32 operand (element strides `st`,
+// unit last stride) whose box is 32 columns x R rows with SWIZZLE_128B:
+// dims (hd, T, H, B), box (32, R, 1, 1); columns past hd come as zeros.
+CUresult swizzled_map(CUtensorMap* map, const float* x, int B, int H, int T, int hd, const Strides& st, int R) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.t) * 4, static_cast<cuuint64_t>(st.h) * 4,
+                                 static_cast<cuuint64_t>(st.b) * 4};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(R), 1, 1};
+  const cuuint32_t estrides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x), dims, strides, box, estrides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The forward is a few tens of microseconds on the card, so its host path is
+// kept short: the shared-memory limit is set once per device and kernel
+// (devices 0-63), not at every launch as `launch` does.
+template <int DKP, int NC>
+int launch_fwd_nc(const Params& p, int B, int dev, cudaStream_t s) {
+  using L = FwdLayout<DKP, NC>;
+  static std::atomic<unsigned long long> limit_set{0};
+  FwdMaps maps;
+  CUresult r = swizzled_map(&maps.q, p.q, B, p.H, p.Tq, p.dk, p.sq, FWD_BM);
+  if (r == CUDA_SUCCESS) r = swizzled_map(&maps.k, p.k, B, p.H, p.Tk, p.dk, p.sk, L::BN);
+  if (r == CUDA_SUCCESS) r = swizzled_map(&maps.v, p.v, B, p.H, p.Tk, p.dk, p.sv, L::BN);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(limit_set.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DKP, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               L::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    limit_set.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const int tiles = (p.Tq + NC * FWD_BM - 1) / (NC * FWD_BM);
+  flash_fwd_kernel<DKP, NC><<<dim3(tiles, B * p.H), (NC + 1) * WG, L::BYTES, s>>>(p, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two consumer warpgroups per block (128 query rows, each K/V tile landed
+// once for both) when such blocks fill the card's SMs; else one, which
+// doubles the blocks of a small grid.
+template <int DKP>
+int launch_fwd(const Params& p, int B, cudaStream_t s) {
+  static std::atomic<int> sms_of[64];  // SMs per device, 0 until asked
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = dev < 64 ? sms_of[dev].load(std::memory_order_relaxed) : 0;
+  if (sms == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return static_cast<int>(cudaErrorInvalidDevice);
+    if (dev < 64) sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  const long long blocks = static_cast<long long>(B) * p.H * ((p.Tq + 2 * FWD_BM - 1) / (2 * FWD_BM));
+  return blocks >= sms ? launch_fwd_nc<DKP, 2>(p, B, dev, s) : launch_fwd_nc<DKP, 1>(p, B, dev, s);
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
@@ -1062,7 +1229,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                  static_cast<const float*>(v), static_cast<const int*>(seg_q),
                  static_cast<const int*>(seg_kv), static_cast<float*>(o),
                  static_cast<float*>(m_out), static_cast<float*>(l_out), H, Tq, Tk, dk,
-                 sq_b, sq_h, sq_t, sk_b, sk_h, sk_t, sv_b, sv_h, sv_t, so_b, so_h, so_t,
+                 {sq_b, sq_h, sq_t}, {sk_b, sk_h, sk_t}, {sv_b, sv_h, sv_t}, {so_b, so_h, so_t},
                  sm_scale, mask_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dk, [&](auto c) { return launch_fwd<decltype(c)::value>(p, B, s); });

@@ -1,5 +1,5 @@
 // Device helpers shared by the MRF stage kernels and the matmul probe:
-// cp.async copies, ldmatrix, and bf16 rounding and leaky ReLU.
+// cp.async copies, ldmatrix, bf16 rounding, packing and leaky ReLU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +66,27 @@ __device__ __forceinline__ uint32_t leaky2(uint32_t u, float slope) {
   if (f.y < 0.f) f.y *= slope;
   __nv_bfloat162 o = __floats2bfloat162_rn(f.x, f.y);
   return *reinterpret_cast<uint32_t*>(&o);
+}
+
+// eight bf16 values (one 16-byte vector) to f32 and back (round to nearest)
+__device__ __forceinline__ void unpack_bf16x8(uint4 u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    f[2 * j] = p.x;
+    f[2 * j + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 }  // namespace

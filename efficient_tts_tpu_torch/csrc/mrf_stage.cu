@@ -76,26 +76,6 @@ constexpr int kAverage = 4;   // v = v / n_avg
 
 __device__ __forceinline__ float leaky_f32(float v, float slope) { return v < 0.f ? v * slope : v; }
 
-__device__ __forceinline__ void unpack_bf16x8(uint4 u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    f[2 * j] = p.x;
-    f[2 * j + 1] = p.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack_bf16x8(const float (&f)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-    w[j] = *reinterpret_cast<const uint32_t*>(&p);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 size_t smem_bytes(int C, bool f32, int k, int dil) {
   const size_t rows = BM + static_cast<size_t>(k - 1) * dil;
   const size_t split = f32 ? 2 : 1;

@@ -21,10 +21,12 @@ they write o, dq, dk and dv as [B, H, T, dk] views of contiguous [B, T, H,
 dk] buffers, which reshape to [B, T, H*dk] without a copy.
 
 Precision on the card: every product is TF32 on the tensor cores with f32
-accumulation (mma.sync in the forward, wgmma in the dkv and dq kernels;
-q, k, v, do, p and ds rounded to TF32 to nearest, ties away, before a
-product reads them); the scale, mask, exp, di and every sum are f32. The
-plain versions here are f32 throughout.
+accumulation (wgmma in all three kernels; q, k, v, do, p and ds rounded
+to TF32 to nearest, ties away, before a product reads them); the scale,
+mask, exp, di and every sum are f32. The plain versions here are f32
+throughout. Every kernel takes its tiles by TMA through tensor maps that
+its C entry encodes at each launch (3 for the forward, 4 for each
+backward kernel): the operands are strided views, new at every call.
 
 `flash_attention` is the entry point: on a CPU tensor it is the plain
 forward, so autograd differentiates the plain version; on a CUDA tensor
@@ -125,7 +127,8 @@ def _lib():
 
 
 def _kernel_layout_ok(x) -> bool:
-    return x.stride(-1) == 1 and not any(s % 4 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
+    st = x.stride()
+    return st[-1] == 1 and not (st[0] % 4 or st[1] % 4 or st[2] % 4) and x.data_ptr() % 16 == 0
 
 
 def _check(q, k, v, segment_ids):
@@ -153,7 +156,7 @@ def _check(q, k, v, segment_ids):
 
 def _empty_heads(b, h, t, dk, device):
     """A [B, H, T, dk] view of a contiguous [B, T, H, dk] f32 buffer."""
-    return torch.empty((b, t, h, dk), device=device, dtype=torch.float32).transpose(1, 2)
+    return torch.empty_strided((b, h, t, dk), (t * h * dk, dk, h * dk, 1), device=device, dtype=torch.float32)
 
 
 def _seg_ptrs(segment_ids):

@@ -20,6 +20,10 @@ scale is `mrf_stage_packed_reference`'s, and the TPU kernel's per-(batch,
 tile) scale whenever the sequence fits one of its tiles; past one tile the
 TPU kernel's result depends on its tile size, and this one's does not.
 
+On the card the int8 weights go in with their TMA descriptors
+(`kernel_weights(wq)`, an `ops/mrf.py:KernelWeights`), made once per
+weight; a plain list of weights is prepared at each call.
+
 This is an op, not a generator option: the generator never quantizes.
 """
 
@@ -31,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from efficient_tts_tpu_torch.nn.layers import leaky_relu
-from efficient_tts_tpu_torch.ops.mrf import LRELU_SLOPE, check_stage, conv_plain, stage_chain, stage_launches, true_div
+from efficient_tts_tpu_torch.ops.mrf import (LRELU_SLOPE, KernelWeights, check_stage, conv_plain, stage_chain,
+                                             stage_launches, true_div)
 
 # launches of the CUDA kernels, keyed by (kind, channels): kind "dynamic" or
 # "static" for a conv launch (18 per V1 stage), "absmax" for the reduction
@@ -116,7 +121,33 @@ def _lib():
         lib.mrf_conv_int8.restype = ctypes.c_int
         lib.mrf_absmax.argtypes = [p, p, i, i, i, f, p]
         lib.mrf_absmax.restype = ctypes.c_int
+        lib.mrf_int8_weight_map.argtypes = [p, p, i, i]
+        lib.mrf_int8_weight_map.restype = ctypes.c_int
     return lib
+
+
+def kernel_weights(wq) -> KernelWeights:
+    """The int8 weights (one contiguous [k, C, C] tensor per conv, as
+    `quantize_weights` gives them) with, on a CUDA device, each conv's
+    128-byte TMA descriptor (boxes of 32 bytes of input channels x C output
+    channels). It holds the weight's address: make it once per weight, not
+    in a timed loop. On the CPU `maps` stays None."""
+    wq = list(wq)
+    kw = KernelWeights(wq, wq)
+    if wq and wq[0].device.type == "cuda":
+        lib = _lib()
+        kw.maps = []
+        for w in wq:
+            k, c = w.shape[0], w.shape[-1]
+            if (w.dtype != torch.int8 or not w.is_contiguous() or tuple(w.shape) != (k, c, c)
+                    or w.data_ptr() % 16):
+                raise ValueError(f"an int8 kernel weight must be contiguous int8 [k, {c}, {c}], 16-byte aligned")
+            buf = ctypes.create_string_buffer(128)
+            rc = lib.mrf_int8_weight_map(buf, w.data_ptr(), k, c)
+            if rc != 0:
+                raise RuntimeError(f"mrf_int8_weight_map failed: CUDA error {rc}")
+            kw.maps.append(buf)
+    return kw
 
 
 def _check(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scales):
@@ -132,15 +163,21 @@ def _check(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scales):
 
 
 def mrf_stage_int8(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scales=None):
-    """One W8A8 MRF stage. A CPU tensor goes through
-    `mrf_stage_int8_reference`; a CUDA tensor through the Hopper kernel
-    (mma.sync int8 with int32 accumulation, 18 launches for V1, plus one
-    absmax launch at the entry with dynamic scales), or it raises."""
+    """One W8A8 MRF stage. `wq` is `kernel_weights(wq)` or the list of int8
+    [k, C, C] weights. A CPU tensor goes through `mrf_stage_int8_reference`;
+    a CUDA tensor through the Hopper kernel (s8 wgmma with int32 sums, the
+    weights by TMA; 18 launches for V1, plus one absmax launch at the entry
+    with dynamic scales), or it raises. Given a list on the card, the TMA
+    descriptors are made here, at every call."""
+    kw = wq if isinstance(wq, KernelWeights) else None
+    wq = wq if kw is None else kw.weights
     if x.device.type == "cpu":
         return mrf_stage_int8_reference(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scales)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage_int8 runs on cpu or cuda tensors, got {x.device}")
     _check(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scales)
+    if kw is None or kw.maps is None:
+        kw = kernel_weights(wq)
     lib = _lib()
     b, t, c = x.shape
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
@@ -167,7 +204,7 @@ def mrf_stage_int8(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scal
                 row_of[dst.data_ptr()] = i + 1
             else:
                 s_in, s_stride, amax_out = act_scales[i].data_ptr(), 0, None
-            rc = lib.mrf_conv_int8(src.data_ptr(), wq[i].data_ptr(), scales[i].data_ptr(), biases[i].data_ptr(),
+            rc = lib.mrf_conv_int8(kw.maps[i], src.data_ptr(), scales[i].data_ptr(), biases[i].data_ptr(),
                                    res.data_ptr() if res is not None else None, dst.data_ptr(), s_in, s_stride,
                                    amax_out, b, t, c, wq[i].shape[0], d, flags, len(kernel_sizes), slope, stream)
             if rc != 0:

@@ -62,6 +62,20 @@ def flash_backward_work(b: int, h: int, t: int, dk: int, part: str, segmented: b
             (4 + n_out) * head + 3 * b * h * t * 4 + (2 * b * t * 4 if segmented else 0))
 
 
+def mrf_stage_launch_bytes(b: int, t: int, c: int, dilation_sizes, act_bytes: int = 2) -> dict:
+    """Bytes that a stage run as one launch per conv must move, each launch
+    reading its inputs and writing its output once (halos and weights left
+    out): per dilation the dilated conv reads x and writes a scratch tensor,
+    the d=1 conv reads it and the residual and writes the branch state, and
+    each branch after the first adds into the running sum, one more read.
+    V1 (3 branches of 3 dilations): 47 passes over [b, t, c]. Dynamic
+    scales add the absmax launch's read of the stage input."""
+    act = b * t * c * act_bytes
+    n_branches = len(dilation_sizes)
+    passes = sum(5 * len(dils) for dils in dilation_sizes) + (n_branches - 1)
+    return {"passes": passes, "bytes": passes * act, "absmax_bytes": act}
+
+
 def probe_work(m: int, repeat: int, elem_bytes: int, k: int = 128) -> tuple[float, float]:
     """(operations, bytes) of the rate probe: [m, k] x [k, k] applied
     `repeat` times per row, x and w read once and out written once."""
@@ -95,10 +109,19 @@ def table(b: int = 16) -> list[dict]:
     ms, by = bound_ms(ops, nbytes, "int8")
     rows.append({"kernel": "K2 mrf_stage W8A8", "shape": [b, 262144, 32], "peak": "int8", "ops": ops,
                  "bytes": nbytes, "bound_ms": ms, "bound_by": by})
-    for t, seg in ((512, False), (128, True)):
-        ops, nbytes = flash_work(b, 4, t, 96, seg)
+    # the 18-launch design's floor: not the bound, which counts one read of
+    # x and one write of the result; what 18 unfused launches must move
+    dils = ((1, 3, 5),) * len(V1_KERNEL_SIZES)
+    for c, t in ((32, 262144), *MRF_STAGES):
+        fl = mrf_stage_launch_bytes(b, t, c, dils)
+        rows.append({"kernel": "K2 mrf_stage W8A8, 18-launch design's floor (not the bound)", "shape": [b, t, c],
+                     "passes": fl["passes"], "bytes": fl["bytes"], "floor_ms": fl["bytes"] / PEAK_BYTES * 1e3,
+                     "with_absmax_ms": (fl["bytes"] + fl["absmax_bytes"]) / PEAK_BYTES * 1e3})
+    # synthesis (B=16) and the training batch, where every call is masked
+    for bb, t, seg in ((b, 512, False), (b, 128, True), (TRAIN_B, 512, True), (TRAIN_B, 128, True)):
+        ops, nbytes = flash_work(bb, 4, t, 96, seg)
         ms, by = bound_ms(ops, nbytes, "tf32")
-        rows.append({"kernel": "K4 flash forward", "shape": [b, 4, t, 96], "segment_ids": seg, "peak": "tf32",
+        rows.append({"kernel": "K4 flash forward", "shape": [bb, 4, t, 96], "segment_ids": seg, "peak": "tf32",
                      "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
     # the backward at the training batch (lj_efts_transformer_phnseq.yaml: 64)
     for part in ("dkv", "dq"):

@@ -101,6 +101,29 @@ def test_backward_matches_plain_gradients_at_training_shapes(device, shape, segm
         _check(out, r)
 
 
+@pytest.mark.parametrize("shape", [(64, 4, 512, 96), (64, 4, 128, 96)])
+def test_forward_residuals_at_training_shapes(device, shape):
+    """The training path's residuals come from the forward kernel: m and l
+    at the training shapes (every call masked) against the plain ones, and
+    the dkv and dq kernels fed them against the plain backward fed the same."""
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    b, h, t, dk = shape
+    q, k, v, do = _inputs(b, h, t, dk, seed=t + 7, device=device)
+    seg = _segments(b, t, device, seed=t)
+    scale = dk**-0.5
+    o, m, l = fa._forward_kernel(q, k, v, seg, scale, residuals=True)
+    o_ref, m_ref, l_ref = fa.flash_attention_reference(q, k, v, seg, scale, return_residuals=True)
+    assert m.shape == l.shape == (b, h, t) and m.is_contiguous() and l.is_contiguous()
+    torch.testing.assert_close(m, m_ref, rtol=5e-3, atol=5e-3)
+    torch.testing.assert_close(l, l_ref, rtol=5e-3, atol=5e-3)
+    _check(o, o_ref, {"max_abs_over_range": 1e-2, "rel_rms": 2e-3})
+    got = fa._backward_kernels(q, k, v, o, m, l, do, seg, scale)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, m, l, do, seg, scale)
+    for out, r in zip(got, ref):
+        _check(out, r)
+
+
 @pytest.mark.parametrize("dk", [32, 64, 96, 128])
 @pytest.mark.parametrize("t", [128, 256])
 @pytest.mark.parametrize("segmented", [False, True])

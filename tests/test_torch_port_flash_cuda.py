@@ -5,7 +5,11 @@ the plain version against the library's reference). On the card it builds
 `csrc/flash_attention.cu` and runs it over head widths, lengths, ragged
 segment ids (one row all valid) and both input layouts, each against
 `flash_attention_reference` on the same f32 inputs, and checks that the
-wrapper rejects what the kernel does not take.
+wrapper rejects what the kernel does not take. The kernel runs blocks of
+one or two 64-row consumer warpgroups (two when the grid of 128-row blocks
+fills the card): one tile (T = 64), a length that leaves a block's second
+warpgroup without rows (T = 192), B*H = 1 and a grid large enough for two
+warpgroups are covered, and a query whose segment has no key.
 
 Tolerance: the kernel rounds q, k, v and the softmax weights to TF32
 (2^-11 relative); the plain version is f32. On N(0, 1) inputs the output
@@ -77,6 +81,42 @@ def test_kernel_takes_linear_views_and_odd_head_widths(device, dk):
     _check(out, fa.flash_attention_reference(q, k, v, seg, 0.3))
     # o is a view of a contiguous [B, T, H, dk] buffer
     assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("b,h", [(1, 1), (3, 2), (64, 4)])
+@pytest.mark.parametrize("t", [64, 192])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_kernel_at_one_tile_odd_tiles_and_both_block_sizes(device, b, h, t, segmented):
+    """T = 64 (one K/V tile) and 192 (not a multiple of 128 rows); B*H = 1,
+    6 (one-warpgroup blocks) and 256 (two-warpgroup blocks, where T = 64
+    leaves the second warpgroup idle and T = 192 the last block's)."""
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _inputs(b, h, t, 96, seed=b + t, device=device, layout="bthd")
+    seg = _segments(b, t, device) if segmented else None
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, seg, 96**-0.5)
+    torch.cuda.synchronize()
+    assert fa.launches == {("fwd", t, segmented): 1}
+    _check(out, fa.flash_attention_reference(q, k, v, seg, 96**-0.5))
+
+
+@pytest.mark.parametrize("dk", [40, 96])
+def test_query_whose_segment_has_no_key(device, dk):
+    """Such a row's scores are all the finite mask value: its p is uniform
+    over the keys and its o the mean of v, not NaN."""
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _inputs(2, 2, 128, dk, seed=dk, device=device)
+    seg = _segments(2, 128, device)
+    ids_q = seg.q.clone()
+    ids_q[1, 40] = 2
+    seg = fa.SegmentIds(ids_q, seg.kv)
+    out = fa.flash_attention(q, k, v, seg, dk**-0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _check(out, fa.flash_attention_reference(q, k, v, seg, dk**-0.5))
+    torch.testing.assert_close(out[1, :, 40], v[1].mean(dim=1), rtol=1e-2, atol=1e-2)
 
 
 def test_kernel_rejects_what_it_does_not_take(device):

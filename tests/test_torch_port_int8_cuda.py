@@ -3,7 +3,10 @@ their plain versions, on the card.
 
 Marked `cuda`: skips on a host without an NVIDIA card (the CPU tests hold
 the plain versions against the JAX package). On the card it builds
-`csrc/mrf_stage_int8.cu` and `csrc/probe_matmul.cu`. Both kernels do the
+`csrc/mrf_stage_int8.cu` and `csrc/probe_matmul.cu`. K2 runs each conv as
+an s8 wgmma implicit GEMM with 128-row blocks and its weights by TMA: the
+cases cover C = 32 (32-byte weight rows), widths that are not a multiple of
+64, ragged last blocks and utterances of different scales. Both kernels do the
 plain versions' arithmetic exactly: integer sums, and every f32 operation
 of K2's epilogue rounded as the plain version rounds it, so the results
 must be bit-equal (K5's bf16 mode sums in another order: relative RMS
@@ -56,6 +59,32 @@ def test_int8_kernel_is_bit_equal_to_plain_version(device, c, t, ks, dils, stati
     assert mrf_int8.launches == expected
     ref = mrf_int8.mrf_stage_int8_reference(x, wq, scales, bs, ks, dils, act)
     assert out.dtype == torch.bfloat16 and torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("c,t", [(32, 300), (224, 150), (160, 257)])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_kernel_new_widths_and_per_utterance_scales(device, c, t, static):
+    """C = 32 with a ragged last 128-row block, C = 224 and 160 (widths
+    that are not a multiple of 64), a batch whose two utterances have
+    absmax scales 8x apart, and weights prepared once (`kernel_weights`)
+    for two calls; bit-equal in every case."""
+    from efficient_tts_tpu_torch.ops import mrf_int8
+
+    ks, dils = (3, 7, 11), ((1, 3, 5),) * 3
+    x, wq, scales, bs, ws = _stage(c, t, ks, dils, seed=c * t, device=device)
+    x = x * torch.tensor([1.0, 8.0], device=device, dtype=x.dtype)[:, None, None]
+    amax = mrf_int8.dynamic_scale(x)
+    assert float(amax[1]) > 4 * float(amax[0])
+    act = mrf_int8.calibrate_act_scales(x, [w.to(device) for w in ws], bs, ks, dils) if static else None
+    kw = mrf_int8.kernel_weights(wq)
+    mrf_int8.reset_launches()
+    out = mrf_int8.mrf_stage_int8(x, kw, scales, bs, ks, dils, act)
+    again = mrf_int8.mrf_stage_int8(x, kw, scales, bs, ks, dils, act)
+    torch.cuda.synchronize()
+    assert mrf_int8.launches[("static" if static else "dynamic", c)] == 2 * len(wq)
+    ref = mrf_int8.mrf_stage_int8_reference(x, wq, scales, bs, ks, dils, act)
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+    assert torch.equal(again, out)
 
 
 def test_int8_kernel_rejects_what_it_does_not_take(device):

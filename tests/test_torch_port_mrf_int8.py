@@ -136,3 +136,34 @@ def test_check_takes_bf16_activations_and_int8_weights_only(setup):
     for args in bad:
         with pytest.raises(TypeError):
             mrf_int8._check(args[0], args[1], args[2], bs, KS, DILS, args[3])
+
+
+def test_kernel_weights_hold_the_quantized_weights_as_they_are(setup):
+    """`kernel_weights` repacks nothing: the kernel's TMA boxes cut the
+    [k, C_out, C_in] weights of `quantize_weights` as they are, and on the
+    CPU there are no descriptors; the stage takes either form."""
+    wq, scales = mrf_int8.quantize_weights(setup["ws"])
+    kw = mrf_int8.kernel_weights(wq)
+    assert kw.maps is None and len(kw.kernel) == len(wq)
+    assert all(a is b and c is b for a, b, c in zip(kw.weights, wq, kw.kernel))
+    x = setup["xt"][:, :64]
+    out = mrf_int8.mrf_stage_int8(x, kw, scales, setup["bs"], KS, DILS)
+    assert torch.equal(out, mrf_int8.mrf_stage_int8(x, wq, scales, setup["bs"], KS, DILS))
+
+
+def test_launch_floor_counts_the_bytes_of_the_stage_launch_order():
+    """`utils/roofline.py:mrf_stage_launch_bytes` against the launches that
+    `ops/mrf.py:stage_launches` makes: each reads its source (and residual,
+    and the running sum it adds into) and writes its output once."""
+    from efficient_tts_tpu_torch.utils import roofline
+
+    x = torch.zeros((2, 8, 32))
+    passes = []
+
+    def launch(src, i, d, res, dst, flags):
+        passes.append(2 + (res is not None) + bool(flags & 2))
+
+    mrf.stage_launches(x, len(KS), DILS, launch)
+    fl = roofline.mrf_stage_launch_bytes(2, 8, 32, DILS)
+    assert fl["passes"] == sum(passes) == 47 and len(passes) == 18
+    assert fl["bytes"] == 47 * x.numel() * 2 and fl["absmax_bytes"] == x.numel() * 2
