@@ -12,7 +12,8 @@ Phases, each of which raises on failure:
      consumer warpgroups) holds HGMMA and UTMALDG and no HMMA, the
      backward's dkv and dq kernels HGMMA and no HMMA; and the W8A8
      library's conv kernels (every width): integer wgmma (IGMMA) and
-     UTMALDG, and no integer mma.sync (IMMA);
+     UTMALDG, and no integer mma.sync (IMMA); the probe library's two
+     kernels: HGMMA (bf16) and IGMMA (int8), UTMALDG, no HMMA or IMMA;
   3. kernel vs plain version: every MRF stage of the V1 generator (C =
      256/128/64/32 at its main-path length for B=16, T2=512) through the
      Hopper kernel and through `mrf_stage_reference`, on the same bf16
@@ -30,8 +31,9 @@ Phases, each of which raises on failure:
      kernel bit for bit against `mrf_stage_int8_reference` at [16, 65536,
      64], [16, 131072, 32] and the bench's [16, 262144, 32], with dynamic
      and with static activation scales; the matmul probe at [2^20, 128]
-     against `probe_matmul_reference`, int8 bit for bit, bf16 within
-     relative RMS 1e-2;
+     and at row counts that end in a partial 64-row tile (16, 48, 80,
+     2^20 + 16) against `probe_matmul_reference`, int8 bit for bit, bf16
+     within relative RMS 1e-2;
   4. main paths at full width, seeded random weights through the weight
      bridge; the launch counts are set to 0 before each path and read after
      it:
@@ -71,7 +73,22 @@ Phases, each of which raises on failure:
         the MRF kernels at the next multiple of 32 (launch counts by the
         width the kernel ran at), and the wav against the same path with
         `mrf_impl="plain"` within the MRF bounds of 4a and 4e;
-  5. timing with CUDA events (median and quartiles of 20 runs after
+     h. streaming at full width: one EFTS-CNN batch's mels (B=16, T2=512)
+        from `decode_mel_fixed`, in f32 and bf16, through
+        `generator_chunked` (chunk 256, overlap 24) and one utterance
+        through `stream_vocoder` (chunk 64, overlap 24), each against the
+        full pass (f32 within 1e-5, bf16 within the MRF bound of 4a), with
+        the MRF launches of each window, the time to the first chunk and
+        the full pass's; then each MRF stage (bf16 and f32 kernels) on a
+        streamed window against the full stage: the rows past the stage's
+        halo bit-equal;
+     i. `synthesize_dispatch` with the fetch one batch late: 4 ragged
+        EFTS-CNN batches, f32 and bf16, each fetched waveform equal to
+        `synthesize_fixed`'s at its bucket; the `timings` splits, the wait
+        in `fetch`, the loop's time and its idle share;
+     j. ResBlock2: EFTS-CNN `synthesize_fixed` at T2=512 into a generator
+        at HiFi-GAN V3's widths (plain convs, no MRF launch), f32 and bf16,
+        its time and the vocoder's, finite output;  5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
      time by kernel and idle share from torch.profiler, and each MRF stage
@@ -80,7 +97,7 @@ Phases, each of which raises on failure:
      stage, in bf16 and in f32; the f32 `synthesize_fixed` of both
      models; the W8A8 kernel beside K1 and the cuDNN bf16 stage at the
      bench's shape, and its plain version; the probe beside its plain
-     version and the library's chains. The flash kernels at
+     version and the library's chains, and its int8:bf16 rate ratio. The flash kernels at
      their shapes, their plain versions and `F.scaled_dot_product_attention`
      (forward, and its backward for the backward kernels) are timed by
      their device time (torch.profiler, 20 calls), since one call's
@@ -94,13 +111,14 @@ Phases, each of which raises on failure:
      the earlier reading, and the kernels it holds); bounds from
      `efficient_tts_tpu_torch/utils/roofline.py`;
   5b. with `--baseline DIR`, where DIR holds an earlier tree's
-     `flash_attention.cu` and `mrf_stage_int8.cu` with their headers (the
-     W8A8 conv taking the weight's pointer, not its tensor map, as before
-     the s8 wgmma design): both built with the same nvcc flags, then the
-     flash forward (device time per launch, queued-event time and host
-     time per call) at the four forward shapes and the W8A8 stage (CUDA
-     events) at the bench's shape, dynamic and static, timed in turns
-     (earlier, this tree, this tree, earlier), the outputs compared;
+     `flash_attention.cu`, `mrf_stage_int8.cu` (one whose W8A8 conv takes
+     the weight's tensor map, `mrf_int8_weight_map`) and `probe_matmul.cu`
+     with their headers: all built with the same nvcc flags, then the flash forward (device time per launch,
+     queued-event time and host time per call) at the four forward shapes,
+     the W8A8 stage (CUDA events) at the bench's shape, dynamic and static,
+     and the matmul probe (CUDA events) in bf16 and int8 at [2^20, 128],
+     timed in turns (earlier, this tree, this tree, earlier), the outputs
+     compared;
   6. a `{"kernels": [...]}` line, then the card line, then the last line
      `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
@@ -172,10 +190,21 @@ FLASH_KERNELS = {"fwd": "flash_fwd_kernel", "dkv": "flash_bwd_dkv_wgmma_kernel",
 FLASH_FUNCTIONS = {"fwd": 8, "dkv": 4, "dq": 4}
 # the W8A8 conv kernel (csrc/mrf_stage_int8.cu), one instantiation per C = 32..256
 INT8_KERNEL, INT8_FUNCTIONS = "mrf_conv_int8_wgmma_kernel", 8
+# the matmul probe's kernel (csrc/probe_matmul.cu), bf16 and int8
+PROBE_KERNEL = "probe_wgmma_kernel"
+# row counts of the probe's partial-tile check (64-row tiles): below one
+# tile, one and a part, and one past the bench's 2^20
+PROBE_PARTIAL_M = (16, 48, 80, (1 << 20) + 16)
+# the sources an earlier tree gives to --baseline
+BASELINE_SOURCES = ("flash_attention", "mrf_stage_int8", "probe_matmul")
 # the flash forward's shapes: synthesis at B=16 (decoder, text encoder) and
 # the training batch (every call masked)
 FLASH_FWD_SHAPES = (("decoder", B, 512, False), ("text_encoder", B, 128, True),
                     ("t512_training", TRAIN_B, 512, True), ("text_encoder_training", TRAIN_B, 128, True))
+# chunked and streamed f32 waveforms vs the full pass: the interiors' MRF
+# rows are bit-equal, but cuDNN may sum conv_pre, the upsamples and
+# conv_post in another order at a window's shape (the wav lies in [-1, 1])
+CHUNK_F32_ATOL = 1e-5
 # HiFi-GAN widths below V1's: the V2 generator's and the serving tests' narrow one
 NARROW_VOCODERS = {"hifigan_v2": 128, "hifigan_narrow": 32}
 
@@ -475,6 +504,30 @@ def keyed(launches):
     return {"/".join(map(str, k)) if isinstance(k, tuple) else k: n for k, n in launches.items()}
 
 
+def wall_ms(torch, fn, n=5):
+    """Median host time of `fn` (which ends in a host copy or a
+    synchronisation) in ms, after one warmup call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def mrf_halo(kernel_sizes, dilation_sizes):
+    """Rows on each side that reach an MRF stage's output position: the
+    widest branch's sum of (k-1)/2 * (d + 1) over its dilation units."""
+    return max(sum((k - 1) // 2 * (d + 1) for d in dils) for k, dils in zip(kernel_sizes, dilation_sizes))
+
+
+def stage_launches(stages, dname, n):
+    return {(dname, c): 18 * n for c, _ in stages}
+
+
 def check_fixed(torch, wav, mel, t2, hop, odim):
     if (wav.shape != (B, t2 * hop) or mel.shape != (B, t2, odim)
             or not bool(torch.isfinite(wav).all()) or not bool(torch.isfinite(mel).all())):
@@ -482,9 +535,9 @@ def check_fixed(torch, wav, mel, t2, hop, odim):
 
 
 def build_tree(path):
-    """Compile `path`'s flash_attention.cu and mrf_stage_int8.cu (their
-    headers beside them) with the port's nvcc flags into path/_build, in
-    parallel; {name: ctypes.CDLL}."""
+    """Compile `path`'s flash_attention.cu, mrf_stage_int8.cu and
+    probe_matmul.cu (their headers beside them) with the port's nvcc flags
+    into path/_build, in parallel; {name: ctypes.CDLL}."""
     import ctypes
     import subprocess
 
@@ -492,7 +545,7 @@ def build_tree(path):
 
     os.makedirs(os.path.join(path, "_build"), exist_ok=True)
     jobs = {}
-    for name in ("flash_attention", "mrf_stage_int8"):
+    for name in BASELINE_SOURCES:
         so = os.path.join(path, "_build", name + ".so")
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, os.path.join(path, name + ".cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
@@ -505,44 +558,10 @@ def build_tree(path):
     return libs
 
 
-def int8_stage_pointer_weights(torch, lib, x, wq, scales, biases, act_scales):
-    """The W8A8 stage through the earlier C interface, which takes each
-    weight's pointer and no tensor map (`mrf_conv_int8(x, w, ...)`), in
-    `ops/mrf_int8.py:mrf_stage_int8`'s launch order."""
-    import ctypes
-
-    from efficient_tts_tpu_torch.ops import mrf
-
-    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
-    b, t, c = x.shape
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    slope = torch.tensor(mrf.LRELU_SLOPE, dtype=torch.bfloat16).item()
-    dynamic = act_scales is None
-    amax = torch.full((len(wq) + 1, b), 1e-12, device=x.device) if dynamic else None
-    row_of = {}
-    if dynamic:
-        if lib.mrf_absmax(x.data_ptr(), amax[0].data_ptr(), b, t, c, slope, stream) != 0:
-            raise RuntimeError("the earlier tree's mrf_absmax failed")
-        row_of[x.data_ptr()] = 0
-
-    def launch(src, i, d, res, dst, flags):
-        if dynamic:
-            s_in, s_stride, amax_out = amax[row_of[src.data_ptr()]].data_ptr(), 1, amax[i + 1].data_ptr()
-            row_of[dst.data_ptr()] = i + 1
-        else:
-            s_in, s_stride, amax_out = act_scales[i].data_ptr(), 0, None
-        rc = lib.mrf_conv_int8(src.data_ptr(), wq[i].data_ptr(), scales[i].data_ptr(), biases[i].data_ptr(),
-                               res.data_ptr() if res is not None else None, dst.data_ptr(), s_in, s_stride,
-                               amax_out, b, t, c, wq[i].shape[0], d, flags, len(ks), slope, stream)
-        if rc != 0:
-            raise RuntimeError(f"the earlier tree's mrf_conv_int8 failed: CUDA error {rc}")
-
-    return mrf.stage_launches(x, len(ks), ds, launch)
-
-
 def baseline_phase(torch, path, dev):
-    """An earlier tree's flash forward and W8A8 stage against this tree's,
-    timed in turns (earlier, this, this, earlier) in this process."""
+    """An earlier tree's flash forward, W8A8 stage and matmul probe against
+    this tree's, timed in turns (earlier, this, this, earlier) in this
+    process."""
     import ctypes
 
     from efficient_tts_tpu_torch.bench import mrf_fused as bench_mrf
@@ -586,17 +605,26 @@ def baseline_phase(torch, path, dev):
              "earlier_host_us": hosts["earlier"], "this_host_us": hosts["this"],
              "this_vs_earlier": err_stats(b_, a)})
         del q, k, v, seg, outs
+    # the earlier tree's W8A8 library takes this tree's C interface (the
+    # weights' tensor maps), so the same wrapper drives it
     old_int8 = libs["mrf_stage_int8"]
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old_int8.mrf_conv_int8.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, p]
-    old_int8.mrf_conv_int8.restype = ctypes.c_int
-    old_int8.mrf_absmax.argtypes = [p, p, i, i, i, f, p]
-    old_int8.mrf_absmax.restype = ctypes.c_int
+    real_int8 = mrf_int8._lib
+    for fn in ("mrf_conv_int8", "mrf_absmax", "mrf_int8_weight_map"):
+        getattr(old_int8, fn).argtypes = getattr(real_int8(), fn).argtypes
+        getattr(old_int8, fn).restype = ctypes.c_int
     c, t = INT8_SHAPES[-1]
     st = bench_mrf.make_stage(B, t * c // bench_mrf.LANES, c, dev)
     kw = mrf_int8.kernel_weights(st["wq"])
+
+    def earlier_stage(act):
+        mrf_int8._lib = lambda: old_int8
+        try:
+            return mrf_int8.mrf_stage_int8(st["x"], kw, st["scales"], st["biases"], (3, 7, 11), ((1, 3, 5),) * 3, act)
+        finally:
+            mrf_int8._lib = real_int8
+
     for kind, act in (("dynamic", None), ("static", st["act_scales"])):
-        fns = {"earlier": lambda: int8_stage_pointer_weights(torch, old_int8, st["x"], st["wq"], st["scales"], st["biases"], act),
+        fns = {"earlier": lambda: earlier_stage(act),
                "this": lambda: mrf_int8.mrf_stage_int8(st["x"], kw, st["scales"], st["biases"], (3, 7, 11),
                                                        ((1, 3, 5),) * 3, act)}
         times = {"earlier": [], "this": []}
@@ -608,6 +636,33 @@ def baseline_phase(torch, path, dev):
         if not equal:
             raise AssertionError(f"the W8A8 stage of {path} and of this tree differ ({kind} scales)")
     del st, kw
+    # the matmul probe: both libraries take the same C interface
+    from efficient_tts_tpu_torch.bench import probe_int8 as bench_probe
+    from efficient_tts_tpu_torch.ops import probe_matmul as pm
+
+    old_pm = libs["probe_matmul"]
+    old_pm.probe_matmul.argtypes = pm._lib().probe_matmul.argtypes
+    old_pm.probe_matmul.restype = ctypes.c_int
+    real_pm = pm._lib
+    times = {}
+    for name, (x, w) in bench_probe.make_inputs(bench_probe.M, dev).items():
+        times[name], outs = {"earlier": [], "this": []}, {}
+        try:
+            for tree in order:
+                pm._lib = (lambda: old_pm) if tree == "earlier" else real_pm
+                outs[tree] = pm.probe_matmul(x, w)
+                times[name][tree].append(time_ms(lambda: pm.probe_matmul(x, w))["median"])
+        finally:
+            pm._lib = real_pm
+        stats = err_stats(outs["this"], outs["earlier"])
+        log({"phase": "baseline", "what": f"probe_matmul_{name}", "shape": list(x.shape), "order": order,
+             "earlier_ms": times[name]["earlier"], "this_ms": times[name]["this"], "this_vs_earlier": stats})
+        if name == "int8" and stats["max_abs_err"] != 0.0:
+            raise AssertionError(f"the int8 probe of {path} and of this tree differ: {stats}")
+        del x, w, outs
+    ratio = {tree: [b_ / i_ for b_, i_ in zip(times["bf16"][tree], times["int8"][tree])] for tree in ("earlier", "this")}
+    log({"phase": "baseline", "what": "probe_matmul int8:bf16 rate ratio", "earlier": ratio["earlier"],
+         "this": ratio["this"]})
 
 
 def main(argv=None) -> int:
@@ -616,8 +671,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--baseline", help="a directory holding an earlier tree's flash_attention.cu and "
-                    "mrf_stage_int8.cu with their headers, timed in turns with this tree's (phase 5b)")
+    ap.add_argument("--baseline", help="a directory holding an earlier tree's flash_attention.cu, "
+                    "mrf_stage_int8.cu and probe_matmul.cu with their headers, timed in turns with this "
+                    "tree's (phase 5b)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -679,6 +735,14 @@ def main(argv=None) -> int:
     if len(int8_sass) != INT8_FUNCTIONS or any(c["IGMMA"] == 0 or c["UTMALDG"] == 0 or c["IMMA"] != 0
                                                for c in int8_sass.values()):
         raise AssertionError(f"the W8A8 kernels are not {INT8_FUNCTIONS} s8-wgmma functions fed by TMA: {int8_sass}")
+    # the probe's two kernels: wgmma (bf16 HGMMA, int8 IGMMA) fed by TMA, no mma.sync
+    probe_sass = {name: c for name, c in sass_by_function(built["probe_matmul"]["path"]).items()
+                  if PROBE_KERNEL in name}
+    log({"phase": "build", "what": f"probe_matmul SASS, {PROBE_KERNEL}", "functions": len(probe_sass),
+         **{op: [c[op] for c in probe_sass.values()] for op in SASS_OPS}})
+    if (len(probe_sass) != 2 or any(c["UTMALDG"] == 0 or c["HMMA"] != 0 or c["IMMA"] != 0 for c in probe_sass.values())
+            or sorted((c["HGMMA"] > 0, c["IGMMA"] > 0) for c in probe_sass.values()) != [(False, True), (True, False)]):
+        raise AssertionError(f"the probe is not a bf16 and an int8 wgmma function fed by TMA: {probe_sass}")
 
     voc_cfg = HiFiGANConfig()
     efts_cfg = EftsCNNConfig(num_symbols=76, dropout_rate=0.0, use_masking=True)
@@ -768,19 +832,22 @@ def main(argv=None) -> int:
             if stats["max_abs_err"] != 0.0:
                 raise AssertionError(f"W8A8 MRF kernel differs from its plain version at {[B, t, c]}: {stats}")
         del st, args, out
-    # the matmul probe (K5) at the bench's shape
+    # the matmul probe (K5) at the bench's shape, then at row counts that end
+    # in a partial 64-row tile (the bench's inputs, cut or extended)
     probe_rows = {}
-    for name, (x, w) in bench_probe.make_inputs(bench_probe.M, dev).items():
-        out = pm.probe_matmul(x, w)
-        torch.cuda.synchronize()
-        stats = err_stats(out, pm.probe_matmul_reference(x, w))
-        tol = PROBE_BF16_TOL if name == "bf16" else "bit-equal"
-        log({"phase": "kernel_vs_plain", "kernel": f"probe_matmul_{name}", "shape": list(x.shape), **stats,
-             "tolerance": tol})
-        if stats["rel_rms"] > PROBE_BF16_TOL["rel_rms"] or (name == "int8" and stats["max_abs_err"] != 0.0):
-            raise AssertionError(f"the {name} probe kernel disagrees with its plain version: {stats}")
-        probe_rows[name] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
-        del x, w, out
+    for m in (bench_probe.M, *PROBE_PARTIAL_M):
+        for name, (x, w) in bench_probe.make_inputs(m, dev).items():
+            out = pm.probe_matmul(x, w)
+            torch.cuda.synchronize()
+            stats = err_stats(out, pm.probe_matmul_reference(x, w))
+            tol = PROBE_BF16_TOL if name == "bf16" else "bit-equal"
+            log({"phase": "kernel_vs_plain", "kernel": f"probe_matmul_{name}", "shape": list(x.shape), **stats,
+                 "tolerance": tol})
+            if stats["rel_rms"] > PROBE_BF16_TOL["rel_rms"] or (name == "int8" and stats["max_abs_err"] != 0.0):
+                raise AssertionError(f"the {name} probe kernel disagrees with its plain version at M={m}: {stats}")
+            if m == bench_probe.M:
+                probe_rows[name] = {"max_abs_err": stats["max_abs_err"], "rel_rms": stats["rel_rms"]}
+            del x, w, out
 
     # 4a. EFTS-CNN main path at full width
     efts = compat.efts_cnn_from_jax(init.init_efts(0, efts_cfg), efts_cfg, device="cuda")
@@ -1047,6 +1114,155 @@ def main(argv=None) -> int:
             del wav, wav_plain, mel
         del nvoc
 
+    # 4h. the streaming paths at full width: EFTS-CNN -> HiFi-GAN V1, one
+    # batch's mels (B=16, T2=512) from decode_mel_fixed, f32 and bf16. Random
+    # weights give about 1.8 frames a token; this duration bias gives about
+    # 5 (the longest utterance of the batch 482 frames), the shape of
+    # bench.py's T1=96 -> T2=512, so an utterance streams in 8 chunks
+    from efficient_tts_tpu_torch.models.hifigan import generator_chunked
+
+    long_params = init.init_efts(0, efts_cfg)
+    long_params["duration_predictor"]["out"]["b"][:] = 0.8
+    efts_long = compat.efts_cnn_from_jax(long_params, efts_cfg, device="cuda")
+
+    new_launches = {}
+    for cdt, dname in ((None, "f32"), (bf16, "bf16")):
+        mrf.reset_launches()
+        mel, mel_len = pipeline.decode_mel_fixed(efts_long, *batches[0], T2, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        if mrf.launches or mel.shape != (B, T2, efts_cfg.odim) or not bool(torch.isfinite(mel).all()):
+            raise AssertionError(f"decode_mel_fixed gave {tuple(mel.shape)}, MRF launches {mrf.launches}")
+        with torch.inference_mode():
+            full = voc(mel, compute_dtype=cdt)
+        mrf.reset_launches()
+        chunked = generator_chunked(voc, mel, compute_dtype=cdt, chunk_frames=256, overlap_frames=24)
+        torch.cuda.synchronize()
+        got = new_launches["efts_cnn_chunked", dname] = dict(mrf.launches)
+        n_win = -(-T2 // 256)
+        stats = err_stats(chunked, full)
+        ok = stats["max_abs_err"] <= CHUNK_F32_ATOL if cdt is None else within(stats, WAV_TOL)
+        log({"phase": "main_path_vs_full_pass", "what": "generator_chunked", "dtype": dname, "shape": list(mel.shape),
+             "chunk_frames": 256, "overlap_frames": 24, "windows": n_win, "mrf_launches": keyed(got), **stats,
+             "bit_equal": bool(torch.equal(chunked, full)),
+             "tolerance": {"max_abs": CHUNK_F32_ATOL} if cdt is None else WAV_TOL,
+             "ms": time_ms(lambda: generator_chunked(voc, mel, compute_dtype=cdt, chunk_frames=256))["median"],
+             "full_pass_ms": time_ms(lambda: voc(mel, compute_dtype=cdt))["median"]})
+        if got != stage_launches(stages, dname, n_win) or not ok:
+            raise AssertionError(f"generator_chunked in {dname}: launches {got}, {stats}")
+        # one utterance streamed in chunks of 64 frames, joined, against its full pass
+        n0 = int(mel_len[0])
+        mel0 = mel[0, :n0].float().cpu().numpy()
+
+        def full_pass():
+            with torch.inference_mode():
+                return voc(mel[:1, :n0].contiguous(), compute_dtype=cdt)[0].cpu().numpy()
+
+        def first_chunk():
+            return next(pipeline.stream_vocoder(voc, mel0, chunk_frames=64, overlap_frames=24, compute_dtype=cdt))
+
+        mrf.reset_launches()
+        chunks = list(pipeline.stream_vocoder(voc, mel0, chunk_frames=64, overlap_frames=24, compute_dtype=cdt))
+        got = new_launches["efts_cnn_streamed", dname] = dict(mrf.launches)
+        ref0 = torch.from_numpy(full_pass())
+        joined = torch.from_numpy(np.concatenate(chunks))
+        stats = err_stats(joined, ref0)
+        ok = stats["max_abs_err"] <= CHUNK_F32_ATOL if cdt is None else within(stats, WAV_TOL)
+        ttfc, full_ms = wall_ms(torch, first_chunk), wall_ms(torch, full_pass)
+        log({"phase": "main_path_vs_full_pass", "what": "stream_vocoder", "dtype": dname, "frames": n0,
+             "chunk_frames": 64, "overlap_frames": 24, "chunks": len(chunks), "mrf_launches": keyed(got), **stats,
+             "bit_equal": bool(torch.equal(joined, ref0)),
+             "tolerance": {"max_abs": CHUNK_F32_ATOL} if cdt is None else WAV_TOL,
+             "first_chunk_ms": ttfc, "full_pass_ms": full_ms, "first_chunk_over_full_pass": ttfc / full_ms})
+        if len(chunks) < 3 or got != stage_launches(stages, dname, len(chunks)) or not ok:
+            raise AssertionError(f"stream_vocoder in {dname} over {n0} frames: launches {got}, {stats}")
+        del mel, full, chunked, chunks
+    # the MRF kernels alone on a streamed window (mel frames 40..152, the second
+    # window of stream_vocoder): its rows past the stage's halo are the full
+    # stage's rows bit for bit, in bf16 and in f32
+    halo = mrf_halo(ks, ds)
+    for dtype in (bf16, torch.float32):
+        for c, t in stages:
+            x, ws, bs, order = stage_inputs(torch, c, t, seed=c, dev=dev, kernel_sizes=ks, dilation_sizes=ds,
+                                            dtype=dtype)
+            x = x[:2].contiguous()
+            kw = mrf.kernel_weights(ws)
+            up = t // T2
+            w0, w1 = 40 * up, 152 * up
+            full = mrf.mrf_stage(x, kw, bs, ks, ds)
+            win = mrf.mrf_stage(x[:, w0:w1].contiguous(), kw, bs, ks, ds)
+            torch.cuda.synchronize()
+            stats = err_stats(win[:, halo:-halo], full[:, w0 + halo:w1 - halo])
+            log({"phase": "kernel_window_interior", "dtype": str(dtype).split(".")[-1], "channels": c,
+                 "window_rows": [w0, w1], "halo": halo, **stats, "tolerance": "bit-equal"})
+            if stats["max_abs_err"] != 0.0:
+                raise AssertionError(f"the MRF kernel on a window differs from the full stage at C={c}: {stats}")
+            del x, ws, bs, kw, full, win
+
+    # 4i. dispatch with the fetch one batch late: 4 ragged batches, each
+    # fetched only after the next is dispatched, against synthesize_fixed
+    d_batches = ragged_batches(np.random.default_rng(3), T1, efts_cfg.num_symbols, n=4)
+
+    def dispatch_loop(cdt):
+        """Dispatch batch n + 1, then fetch batch n; the waveforms, lengths and
+        the timings of each batch (with the host's wait in fetch)."""
+        results, pending = [], None
+        for batch in [*d_batches, None]:
+            nxt = None
+            if batch is not None:
+                tm = {}
+                nxt = (*pipeline.synthesize_dispatch(efts_long, voc, *batch, compute_dtype=cdt, timings=tm), tm)
+            if pending is not None:
+                t0 = time.perf_counter()
+                wav = pipeline.fetch(pending[0])
+                pending[2]["fetch_s"] = time.perf_counter() - t0
+                results.append((wav, pending[1], pending[2]))
+            pending = nxt
+        return results
+
+    for cdt, dname in ((None, "f32"), (bf16, "bf16")):
+        mrf.reset_launches()
+        results = dispatch_loop(cdt)
+        got = new_launches["efts_cnn_dispatch", dname] = dict(mrf.launches)
+        for (text, lengths), (wav, wl, tm) in zip(d_batches, results):
+            wav_f, wl_f, _ = pipeline.synthesize_fixed(efts_long, voc, text, lengths, tm["t2"], compute_dtype=cdt)
+            if not (torch.equal(torch.from_numpy(wav), wav_f.cpu()) and np.array_equal(wl, wl_f.cpu().numpy())):
+                raise AssertionError(f"a dispatched batch in {dname} differs from synthesize_fixed at t2={tm['t2']}: "
+                                     f"{err_stats(torch.from_numpy(wav), wav_f.cpu())}")
+        loop_ms = wall_ms(torch, lambda: dispatch_loop(cdt), n=3)
+        prof = device_profile(torch, lambda: dispatch_loop(cdt), n=1)
+        busy = sum(v[0] for v in prof.values()) if prof else None
+        log({"phase": "main_path", "what": "synthesize_dispatch + fetch one batch late", "dtype": dname,
+             "batches": len(results), "mrf_launches": keyed(got), "equal_to_synthesize_fixed": True,
+             "timings": [tm for _, _, tm in results], "loop_ms": loop_ms,
+             "device_busy_ms": busy if busy is not None else "not measured",
+             "idle_share": max(0.0, 1.0 - busy / loop_ms) if busy is not None else "not measured"})
+        if got != stage_launches(stages, dname, len(d_batches)):
+            raise AssertionError(f"the dispatched batches in {dname} launched {got}")
+        del results
+
+    # 4j. ResBlock2: EFTS-CNN into a generator at HiFi-GAN V3's widths (no kernel)
+    v3_cfg = HiFiGANConfig(resblock="2", upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+                           upsample_initial_channel=256, resblock_kernel_sizes=(3, 5, 7),
+                           resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+    voc3 = compat.hifigan_generator_from_jax(init.init_generator(5, v3_cfg), v3_cfg, device="cuda")
+    v3_wavs = {}
+    for cdt, dname in ((None, "f32"), (bf16, "bf16")):
+        def synth3():
+            return pipeline.synthesize_fixed(efts, voc3, *batches[0], T2, compute_dtype=cdt)
+
+        mrf.reset_launches()
+        wav, wl, mel = synth3()
+        torch.cuda.synchronize()
+        check_fixed(torch, wav, mel, T2, v3_cfg.hop_size, efts_cfg.odim)
+        if mrf.launches:
+            raise AssertionError(f"the ResBlock2 generator launched MRF kernels: {mrf.launches}")
+        v3_wavs[dname] = wav
+        log({"phase": "main_path", "what": "synthesize_fixed, ResBlock2 (V3 widths)", "dtype": dname, "B": B,
+             "T2": T2, "wav_shape": list(wav.shape), "finite": True, "ms": time_ms(synth3)["median"],
+             "vocoder_ms": time_ms(lambda: voc3(mel, compute_dtype=cdt))["median"],
+             **({"vs_f32": err_stats(wav, v3_wavs["f32"])} if dname == "bf16" else {})})
+    del voc3, v3_wavs
+
     # 5. timing
     def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16):
         """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
@@ -1121,6 +1337,7 @@ def main(argv=None) -> int:
             by_path = ({name: f32_launches[name].get(key, 0) for name in f32_launches} if f32
                        else {"efts_cnn": launches.get(key, 0), "efts_transformer": tr_launches.get(key, 0)})
             by_path.update({f"efts_cnn_{v}": narrow_launches[v, dname].get(key, 0) for v in NARROW_VOCODERS})
+            by_path.update({path: n.get(key, 0) for (path, dn), n in new_launches.items() if dn == dname})
             row = {
                 "name": f"mrf_stage_{'f32_' if f32 else ''}c{c}", "route": "cuda",
                 "source": "efficient_tts_tpu_torch/csrc/mrf_stage.cu",
@@ -1206,6 +1423,9 @@ def main(argv=None) -> int:
              "bound_share": bound / k_ms, "peak_used": f"{name} {'989' if name == 'bf16' else '1979'} T/s",
              **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
         del x, w
+    log({"phase": "timing", "what": "probe_matmul int8:bf16 rate ratio", "kernel": probe["int8_over_bf16_rate"],
+         "library": probe["times"]["torch bf16"]["median"] / probe["times"]["torch int8"]["median"],
+         "peaks": 1979 / 989})
 
     for name, fb, t, segmented in FLASH_FWD_SHAPES:
         q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented, b=fb)

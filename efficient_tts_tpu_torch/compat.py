@@ -187,8 +187,14 @@ def hifigan_generator_from_jax(params: dict, cfg: HiFiGANConfig, device="cuda") 
     n_kernels = len(cfg.resblock_kernel_sizes)
     for i, (up, stage) in enumerate(zip(model.ups, model.stages)):
         _load_conv_transpose(up, p["ups"][i])
+        blocks = p["resblocks"][i * n_kernels:(i + 1) * n_kernels]
+        if cfg.resblock == "2":
+            for branch, block in zip(stage.convs, blocks, strict=True):
+                for conv, cp in zip(branch, block["convs"], strict=True):
+                    _load_conv(conv, cp)
+            continue
         ws, bs = [], []
-        for block in p["resblocks"][i * n_kernels:(i + 1) * n_kernels]:
+        for block in blocks:
             for c1, c2 in zip(block["convs1"], block["convs2"], strict=True):
                 for conv in (c1, c2):
                     ws.append(np.transpose(conv["w"], (0, 2, 1)))  # [k, out, in]

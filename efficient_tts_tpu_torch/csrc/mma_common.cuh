@@ -1,5 +1,5 @@
-// Device helpers shared by the MRF stage kernels and the matmul probe:
-// cp.async copies, ldmatrix, bf16 rounding, packing and leaky ReLU.
+// Device helpers shared by the MRF stage kernels: shared-memory addresses,
+// cp.async copies, bf16 rounding, packing and leaky ReLU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,36 +21,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 matrices of 16-bit elements (or 8 x 16 bytes of int8), one row
-// address per lane: lanes 0-7 give matrix 0's rows, 8-15 matrix 1's, ...
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// int8 x int8 -> int32. The A fragment (16 x 32 bytes) and B fragment
-// (8 x 32 bytes, one row per output column) sit in registers byte for byte
-// as the bf16 m16n8k16 fragments do, so the same ldmatrix addressing loads
-// them.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float round_bf16(float v) {

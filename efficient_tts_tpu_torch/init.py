@@ -135,10 +135,10 @@ def init_generator(seed: int, cfg: HiFiGANConfig) -> dict:
     ch = c0
     for i in range(len(cfg.upsample_rates)):
         ch = c0 // 2 ** (i + 1)
+        names = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
         for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
             params["resblocks"].append({
-                name: [_weight_norm(_conv(rng, ch, ch, k, init="normal")) for _ in dils]
-                for name in ("convs1", "convs2")
+                name: [_weight_norm(_conv(rng, ch, ch, k, init="normal")) for _ in dils] for name in names
             })
     params["conv_post"] = _weight_norm(_conv(rng, ch, 1, 7))
     return params

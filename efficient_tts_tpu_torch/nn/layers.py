@@ -102,13 +102,14 @@ class Linear(nn.Module):
 
 
 class Conv1d(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, dilation: int = 1):
         super().__init__()
         self.weight = frozen_param((out_ch, in_ch, kernel_size))
         self.bias = frozen_param((out_ch,))
+        self.dilation = dilation
 
     def forward(self, x):
-        return conv1d(x, self.weight, self.bias)
+        return conv1d(x, self.weight, self.bias, self.dilation)
 
 
 class ConvTranspose1d(nn.Module):

@@ -9,7 +9,10 @@ x [M, 128], w [128, 128] ([K, N]), in
         repeats and at the end, as a cast to int8 wraps (300 -> 44).
 
 The probe measured the ratio of the int8 and bf16 matrix rates; on the card
-`bench/probe_int8.py` times it beside the library's chains.
+`bench/probe_int8.py` times it beside the library's chains. The card's
+kernel (`csrc/probe_matmul.cu`) is a wgmma kernel fed by TMA: a persistent
+block per SM, 64-row tiles of x landed into a ring, the first product read
+from shared memory and the next ones from the accumulator registers.
 """
 
 from __future__ import annotations
@@ -60,8 +63,9 @@ def _lib():
 
 def probe_matmul(x, w, repeat: int = 8):
     """x [M, 128] and w [128, 128], both bf16 or both int8, M a multiple of
-    16. A CPU tensor goes through `probe_matmul_reference`; a CUDA tensor
-    through the Hopper kernel (one launch), or it raises."""
+    16, contiguous and 16-byte aligned (the kernel's TMA maps need it). A
+    CPU tensor goes through `probe_matmul_reference`; a CUDA tensor through
+    the Hopper kernel (one launch), or it raises."""
     if x.device.type == "cpu":
         return probe_matmul_reference(x, w, repeat)
     if x.device.type != "cuda":
@@ -70,9 +74,10 @@ def probe_matmul(x, w, repeat: int = 8):
         raise TypeError(f"probe_matmul takes bf16 or int8 x and w of one dtype, got {x.dtype}, {w.dtype}")
     m = x.shape[0]
     if (x.dim() != 2 or x.shape[1] != K or m < 16 or m % 16 or tuple(w.shape) != (K, K)
-            or not x.is_contiguous() or not w.is_contiguous() or w.device != x.device or repeat < 1):
-        raise ValueError(f"probe_matmul takes contiguous x [M, {K}] (M a multiple of 16) and w [{K}, {K}] "
-                         f"on one device, got {tuple(x.shape)}, {tuple(w.shape)}")
+            or not x.is_contiguous() or not w.is_contiguous() or w.device != x.device or repeat < 1
+            or x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"probe_matmul takes contiguous, 16-byte aligned x [M, {K}] (M a multiple of 16) "
+                         f"and w [{K}, {K}] on one device, got {tuple(x.shape)}, {tuple(w.shape)}")
     name, mode = _MODES[x.dtype]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

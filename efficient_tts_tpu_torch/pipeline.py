@@ -9,6 +9,13 @@ feeds the HiFi-GAN V1 generator:
   stage 2 (`synthesize_fixed`): decode mel at the bucket length and run the
       vocoder; the tail beyond each utterance's length is masked.
 
+`synthesize_dispatch` runs stage 1 and its one readback, queues stage 2 and
+an asynchronous copy of the waveform to pinned host memory, and returns at
+once; `fetch` waits for that copy alone, so a caller can dispatch the next
+batch before fetching this one (`synthesize` is the two back to back).
+`decode_mel_fixed` is the mel half of stage 2, and `stream_vocoder` vocodes
+a host mel window by window for a low time to first audio.
+
 Every entry point runs on `device` ("cuda" by default) and raises without a
 card unless the caller passes device="cpu". With the default
 compute_dtype=None the decoder and vocoder run in f32, as the JAX package's
@@ -21,6 +28,8 @@ computes them in full f32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -71,10 +80,16 @@ def _mel_lengths(e, text_lengths):
     return torch.round(torch.gather(e, 1, (text_lengths - 1)[:, None])[:, 0]).to(torch.int32)
 
 
-def _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2, cdt, mrf_impl, output):
+def _decode(model, e, value, tmask, text_lengths, t2, cdt):
+    """(mel [B, t2, odim] with the tail past each length zeroed, mel lengths
+    clipped to [1, t2])."""
     mel, _ = model.infer_decode(value, e, tmask, t2, compute_dtype=cdt)
     mel_lengths = torch.clamp(_mel_lengths(e, text_lengths), 1, t2)
-    mel = mel * sequence_mask(mel_lengths, t2, dtype=mel.dtype)[:, :, None]
+    return mel * sequence_mask(mel_lengths, t2, dtype=mel.dtype)[:, :, None], mel_lengths
+
+
+def _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2, cdt, mrf_impl, output):
+    mel, mel_lengths = _decode(model, e, value, tmask, text_lengths, t2, cdt)
     wav = voc(mel, compute_dtype=cdt, mrf_impl=mrf_impl)
     hop = voc.cfg.hop_size
     wav_lengths = mel_lengths * hop
@@ -126,6 +141,104 @@ def synthesize_fixed(
                                   as_dtype(compute_dtype), mrf_impl, output)
 
 
+def decode_mel_fixed(
+    model: AcousticModel,
+    text,
+    text_lengths,
+    t2: int,
+    compute_dtype=None,
+    duration_correction=False,
+    device="cuda",
+):
+    """Text -> (mel [B, t2, odim], mel_lengths [B] int32) at a static mel
+    length t2, on the device: the mel half of `synthesize_fixed`, the tail
+    past each utterance's length zeroed, for vocoding apart (streaming,
+    inspection)."""
+    text, text_lengths = _inputs(model, None, text, text_lengths, device)
+    with _full_f32():
+        e, value, tmask = _stage1(model, text, text_lengths, duration_correction)
+        return _decode(model, e, value, tmask, text_lengths, t2, as_dtype(compute_dtype))
+
+
+@dataclasses.dataclass
+class Dispatched:
+    """A dispatched batch's waveform on its way to the host (`fetch` it):
+    on the card, a pinned host tensor that a copy on a side stream fills and
+    the event that copy records when done; on the CPU the result itself and
+    no event. Each dispatch has its own buffer, released when the last
+    reference to it (the handle or the fetched array) goes."""
+
+    wav: torch.Tensor
+    done: torch.cuda.Event | None
+
+
+def _copy_to_host(wav: torch.Tensor) -> Dispatched:
+    """Queue wav's device-to-host copy on a side stream that waits for the
+    compute stream's work so far, into a new pinned buffer."""
+    if wav.device.type == "cpu":
+        return Dispatched(wav, None)
+    compute = torch.cuda.current_stream(wav.device)
+    side = torch.cuda.Stream(device=wav.device)
+    ready = torch.cuda.Event()
+    ready.record(compute)
+    host = torch.empty(wav.shape, dtype=wav.dtype, pin_memory=True)
+    done = torch.cuda.Event()
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        host.copy_(wav, non_blocking=True)
+        done.record(side)
+    # the compute stream's allocator must not reuse wav's memory before the copy has read it
+    wav.record_stream(side)
+    return Dispatched(host, done)
+
+
+def fetch(handle: Dispatched) -> np.ndarray:
+    """The waveform of `synthesize_dispatch`, once its copy is done (it waits
+    for that copy's event alone, not for work queued since)."""
+    if handle.done is not None:
+        handle.done.synchronize()
+    return handle.wav.numpy()
+
+
+def synthesize_dispatch(
+    model: AcousticModel,
+    voc: HiFiGANGenerator,
+    text,
+    text_lengths,
+    bucket_multiple: int = 64,
+    max_t2: int = 2048,
+    compute_dtype=None,
+    mrf_impl: str = "kernel",
+    duration_correction=False,
+    output: str = "f32",
+    timings: dict | None = None,
+    device="cuda",
+):
+    """Dispatch batched synthesis without waiting for the waveform: stage 1
+    and its one readback (the mel lengths, which pick the bucket t2), then
+    stage 2 and an asynchronous copy of the waveform to the host are queued.
+    Returns (handle, wav_lengths [B] int32 numpy); `fetch(handle)` gives the
+    waveform [B, t2*hop]. The lengths are clip(mel_lengths, 1, t2) * hop,
+    computed on the host from the readback, as stage 2 computes them. If
+    `timings` is a dict it receives the wall-clock splits "stage1_s" (to the
+    readback) and "dispatch_s" (queueing stage 2 and the copy), and "t2"."""
+    _check_output(output)
+    t_a = time.perf_counter()
+    text, text_lengths = _inputs(model, voc, text, text_lengths, device)
+    with _full_f32():
+        e, value, tmask = _stage1(model, text, text_lengths, duration_correction)
+        mel_lengths = _mel_lengths(e, text_lengths).cpu().numpy()
+        t_b = time.perf_counter()
+        t2 = min(bucket_length(int(mel_lengths.max()), bucket_multiple), max_t2)
+        wav, _, _ = _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2,
+                                       as_dtype(compute_dtype), mrf_impl, output)
+        handle = _copy_to_host(wav)
+    wav_lengths = np.clip(mel_lengths, 1, t2).astype(np.int32) * voc.cfg.hop_size
+    if timings is not None:
+        timings.update(stage1_s=t_b - t_a, dispatch_s=time.perf_counter() - t_b, t2=t2)
+    return handle, wav_lengths
+
+
 def synthesize(
     model: AcousticModel,
     voc: HiFiGANGenerator,
@@ -139,22 +252,70 @@ def synthesize(
     output: str = "f32",
     device="cuda",
 ):
-    """Host-driven batched synthesis with automatic bucket choice.
-    Returns (wav [B, t2*hop] numpy, wav_lengths [B] int32 numpy); the
-    lengths come from the stage-1 readback, and stage 1 runs once.
+    """Host-driven batched synthesis with automatic bucket choice:
+    `synthesize_dispatch`, then `fetch`. Returns (wav [B, t2*hop] numpy,
+    wav_lengths [B] int32 numpy); the lengths come from the stage-1
+    readback, and stage 1 runs once.
 
     The bucket t2 is the longest length rounded up to `bucket_multiple`.
     It decides which decoder attention calls of an EFTS-Transformer are
     eligible for the flash kernel (t2 a multiple of 128): with the default
     64, some buckets are not; `bucket_multiple=128` keeps every decoder
     call on the kernel."""
-    _check_output(output)
-    text, text_lengths = _inputs(model, voc, text, text_lengths, device)
+    handle, wav_lengths = synthesize_dispatch(
+        model, voc, text, text_lengths, bucket_multiple=bucket_multiple, max_t2=max_t2,
+        compute_dtype=compute_dtype, mrf_impl=mrf_impl, duration_correction=duration_correction,
+        output=output, device=device)
+    return fetch(handle), wav_lengths
+
+
+def _vocode_window(voc: HiFiGANGenerator, seg: np.ndarray, dev, compute_dtype, mrf_impl) -> torch.Tensor:
+    """One host mel window [T, odim] through the generator: [T * hop]."""
+    x = torch.from_numpy(np.ascontiguousarray(seg, np.float32)[None]).to(dev)
     with _full_f32():
-        e, value, tmask = _stage1(model, text, text_lengths, duration_correction)
-        mel_lengths = _mel_lengths(e, text_lengths).cpu().numpy()
-        t2 = min(bucket_length(int(mel_lengths.max()), bucket_multiple), max_t2)
-        wav, _, _ = _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2,
-                                       as_dtype(compute_dtype), mrf_impl, output)
-    wav_lengths = np.clip(mel_lengths, 1, t2).astype(np.int32) * voc.cfg.hop_size
-    return wav.cpu().numpy(), wav_lengths
+        return voc(x, compute_dtype=as_dtype(compute_dtype), mrf_impl=mrf_impl)[0]
+
+
+def stream_vocoder(
+    voc: HiFiGANGenerator,
+    mel,
+    chunk_frames: int = 64,
+    overlap_frames: int = 24,
+    compute_dtype=None,
+    mrf_impl: str = "kernel",
+    device="cuda",
+):
+    """Waveform chunks (numpy, chunk_frames * hop samples each, the last
+    shorter) of a host mel [T, odim], in the overlap-interior scheme of
+    `models/hifigan.py:generator_chunked`: with overlap_frames >= 24 each
+    chunk is the full pass's interior. It runs at most three window shapes
+    for any length, and the first chunk comes after one small window. An
+    utterance of at most chunk + 2 * overlap frames is one window, zero-
+    padded to chunk_frames rounded up (at most chunk + 2 * overlap). Returns
+    a generator; the device is checked at the call."""
+    dev = resolve_device(device)
+    check_module_device(voc, dev)
+    return _stream(voc, np.asarray(mel), dev, chunk_frames, overlap_frames, compute_dtype, mrf_impl)
+
+
+def _stream(voc, mel, dev, chunk_frames, overlap_frames, compute_dtype, mrf_impl):
+    t = mel.shape[0]
+    hop = voc.cfg.total_upsampling
+    ov = overlap_frames
+    if t <= chunk_frames + 2 * ov:
+        pad_t = min(bucket_length(t, chunk_frames), chunk_frames + 2 * ov)
+        seg = np.zeros((pad_t, mel.shape[1]), np.float32)
+        seg[:t] = mel
+        yield _vocode_window(voc, seg, dev, compute_dtype, mrf_impl)[: t * hop].cpu().numpy()
+        return
+    n_chunks = -(-t // chunk_frames)
+    for i in range(n_chunks):
+        lo, hi = i * chunk_frames, min(t, (i + 1) * chunk_frames)
+        if i == 0:
+            seg, keep_lo = mel[: chunk_frames + ov], 0
+        elif i == n_chunks - 1:
+            seg, keep_lo = mel[t - (chunk_frames + ov):], chunk_frames + ov - (hi - lo)
+        else:
+            seg, keep_lo = mel[lo - ov: hi + ov], ov
+        wav = _vocode_window(voc, seg, dev, compute_dtype, mrf_impl)
+        yield wav[keep_lo * hop: (keep_lo + hi - lo) * hop].cpu().numpy()

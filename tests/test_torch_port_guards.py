@@ -14,7 +14,7 @@ import efficient_tts_tpu_torch
 from efficient_tts_tpu_torch import compat, init, pipeline
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
-from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, generator_chunked
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,13 +64,23 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     em = compat.efts_cnn_from_jax(ep, EFTS_CFG, device="cpu")
     vm = compat.hifigan_generator_from_jax(vp, VOC_CFG, device="cpu")
     text, lengths = np.ones((1, 4), np.int32), np.array([4], np.int32)
+    mel = np.zeros((1, 8, 80), np.float32)
     for call in (lambda: pipeline.synthesize(em, vm, text, lengths),
                  lambda: pipeline.synthesize_fixed(em, vm, text, lengths, 32),
-                 lambda: pipeline.predict_lengths(em, text, lengths)):
+                 lambda: pipeline.predict_lengths(em, text, lengths),
+                 lambda: pipeline.decode_mel_fixed(em, text, lengths, 32),
+                 lambda: pipeline.synthesize_dispatch(em, vm, text, lengths),
+                 lambda: pipeline.stream_vocoder(vm, mel[0]),
+                 lambda: generator_chunked(vm, mel)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     wav, wl = pipeline.synthesize(em, vm, text, lengths, device="cpu")
     assert wav.shape[0] == 1 and wl.shape == (1,)
+    handle, wl = pipeline.synthesize_dispatch(em, vm, text, lengths, device="cpu")
+    assert pipeline.fetch(handle).shape == wav.shape
+    assert pipeline.decode_mel_fixed(em, text, lengths, 32, device="cpu")[0].device.type == "cpu"
+    assert np.concatenate(list(pipeline.stream_vocoder(vm, mel[0], device="cpu"))).shape == (8 * 256,)
+    assert generator_chunked(vm, mel, device="cpu").shape == (1, 8 * 256)
 
 
 TR_CFG = EftsTransformerConfig(num_symbols=10, n_channels=16, n_heads=2, ff_hidden=32, n_text_encoder_layer=1,

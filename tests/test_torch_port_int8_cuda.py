@@ -10,7 +10,8 @@ cases cover C = 32 (32-byte weight rows), widths that are not a multiple of
 plain versions' arithmetic exactly: integer sums, and every f32 operation
 of K2's epilogue rounded as the plain version rounds it, so the results
 must be bit-equal (K5's bf16 mode sums in another order: relative RMS
-<= 1e-2).
+<= 1e-2). K5 is a wgmma kernel on 64-row tiles landed and stored by TMA:
+its cases end in partial tiles.
 """
 
 import numpy as np
@@ -100,26 +101,59 @@ def test_int8_kernel_rejects_what_it_does_not_take(device):
         mrf_int8.mrf_stage_int8(x, wq, scales, bs, ks, dils, torch.ones(3, device=device))
 
 
-@pytest.mark.parametrize("mode", ["bf16", "int8"])
-@pytest.mark.parametrize("m", [16, 4096, 3000 * 16])
-def test_probe_kernel_matches_plain_version(device, mode, m):
-    from efficient_tts_tpu_torch.ops import probe_matmul as pm
-
+def _probe_inputs(mode, m, device):
     rng = np.random.default_rng(m)
     if mode == "int8":
-        x, w = rng.integers(-3, 3, (m, 128)), rng.integers(-3, 3, (128, 128))
-        dt = torch.int8
+        x, w, dt = rng.integers(-3, 3, (m, 128)), rng.integers(-3, 3, (128, 128)), torch.int8
     else:
-        x, w = rng.standard_normal((m, 128)), 0.05 * rng.standard_normal((128, 128))
-        dt = torch.bfloat16
-    x, w = (torch.from_numpy(a).to(device).to(dt).contiguous() for a in (x, w))
-    pm.reset_launches()
-    out = pm.probe_matmul(x, w)
-    torch.cuda.synchronize()
-    assert pm.launches == {mode: 1}
-    ref = pm.probe_matmul_reference(x, w)
+        x, w, dt = rng.standard_normal((m, 128)), 0.05 * rng.standard_normal((128, 128)), torch.bfloat16
+    return [torch.from_numpy(a).to(device).to(dt).contiguous() for a in (x, w)]
+
+
+def _check_probe(mode, out, ref):
     if mode == "int8":
         assert torch.equal(out, ref)
     else:
         err = (out.float() - ref.float()).square().mean().sqrt()
         assert float(err / ref.float().square().mean().sqrt()) <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("m", [16, 48, 80, 4096, 3000 * 16, 1 << 20, (1 << 20) + 16])
+def test_probe_kernel_matches_plain_version(device, mode, m):
+    """K5 lands x in 64-row tiles by TMA, zero-filled past M, and stores by
+    TMA, clipped at M: M below one tile (16, 48), a tile and a part (80),
+    the bench's 2^20 and 2^20 + 16. Its store into a larger buffer leaves
+    the rows past M untouched."""
+    import ctypes
+
+    from efficient_tts_tpu_torch.ops import probe_matmul as pm
+
+    x, w = _probe_inputs(mode, m, device)
+    pm.reset_launches()
+    out = pm.probe_matmul(x, w)
+    torch.cuda.synchronize()
+    assert pm.launches == {mode: 1}
+    _check_probe(mode, out, pm.probe_matmul_reference(x, w))
+    big = torch.full((m + 64, 128), 7, dtype=x.dtype, device=device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    assert pm._lib().probe_matmul(x.data_ptr(), w.data_ptr(), big.data_ptr(), m, 8, int(mode == "int8"), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(big[:m], out) and bool((big[m:] == 7).all())
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("repeat", [1, 3])
+def test_probe_kernel_other_repeat_counts(device, mode, repeat):
+    from efficient_tts_tpu_torch.ops import probe_matmul as pm
+
+    x, w = _probe_inputs(mode, 4096 + 48, device)
+    _check_probe(mode, pm.probe_matmul(x, w, repeat), pm.probe_matmul_reference(x, w, repeat))
+
+
+def test_probe_rejects_a_misaligned_input(device):
+    from efficient_tts_tpu_torch.ops import probe_matmul as pm
+
+    x, w = _probe_inputs("int8", 64 + 16, device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pm.probe_matmul(x.view(-1)[8:8 + 64 * 128].view(64, 128), w)

@@ -127,3 +127,159 @@ def test_probe_inputs_and_library_chain_on_the_cpu():
     assert [(x.dtype, w.dtype) for x, w in ins.values()] == [(torch.bfloat16,) * 2, (torch.int8,) * 2]
     x, w = ins["int8"]
     assert torch.equal(probe_int8.library_chain(x, w), pm.probe_matmul_reference(x, w))
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's index maps (csrc/probe_matmul.cu), emulated: a warpgroup's
+# accumulator fragments, the A registers the kernel packs from them, the
+# shared copies of w it writes (128-byte swizzle; in int8 also with k
+# permuted), and its swizzled output tile as the TMA store reads it. The
+# registers are decoded by the wgmma A-fragment layouts (bf16 m64nNk16, s8
+# m64nNk32: per warp the mma.sync m16n8k16 / m16n8k32 A layouts) and the
+# shared copies by the swizzle the B descriptor reads through; the products
+# must equal the plain ones.
+
+
+def _int8_logical_k(k):
+    """probe_matmul.cu:int8_logical_k"""
+    p = k & 31
+    h, q = p >> 4, p & 15
+    tig, b = (q if q < 8 else q - 8) >> 1, (q & 1) + (0 if q < 8 else 2)
+    return (k & ~31) + 16 * h + 4 * tig + b
+
+
+def _sw128(row, c):
+    """probe_matmul.cu:sw128, and the address the hardware reads for byte c of
+    row `row` of a 128-byte-swizzled tile on a 1024-byte boundary"""
+    return row * 128 + ((((c >> 4) ^ row) & 7) << 4) + (c & 15)
+
+
+def _threads():
+    """(thread, warp, g, t) of a warpgroup's 128 threads."""
+    for tid in range(128):
+        lane = tid & 31
+        yield tid, tid >> 5, lane >> 2, lane & 3
+
+
+def _fragments(acc):
+    """d[tid][4j + 2h + e] = acc[16w + g + 8h, 8j + 2t + e]: the wgmma m64n128
+    accumulator layout (sm90_common.cuh:wgmma_ss)."""
+    d = np.zeros((128, 64), acc.dtype)
+    for tid, w, g, t in _threads():
+        for j in range(16):
+            for h in range(2):
+                for e in range(2):
+                    d[tid, 4 * j + 2 * h + e] = acc[16 * w + g + 8 * h, 8 * j + 2 * t + e]
+    return d
+
+
+def _pack_a(d, int8):
+    """The kernel's conversion of one thread's accumulators into the A
+    registers of the next product, as element lists per (k step, register)."""
+    if int8:
+        return [[[q[0], q[1], q[4], q[5]], [q[2], q[3], q[6], q[7]], [q[8], q[9], q[12], q[13]],
+                 [q[10], q[11], q[14], q[15]]] for q in (d[16 * ks:16 * ks + 16] for ks in range(4))]
+    return [[list(q[0:2]), list(q[2:4]), list(q[4:6]), list(q[6:8])] for q in (d[8 * ks:8 * ks + 8] for ks in range(8))]
+
+
+def _decode_a(regs, int8):
+    """The [64, 128] A operand the wgmma reads from every thread's registers:
+    register i holds row g + 8 (i % 2) of its warp's 16 and, in a k step of
+    32 bytes, k = 4t + 16 (i // 2) + e (s8) or 2t + 8 (i // 2) + e (bf16)."""
+    a = np.zeros((64, 128), np.float64)
+    step, per = (32, 4) if int8 else (16, 2)
+    for tid, w, g, t in _threads():
+        for ks, rk in enumerate(regs[tid]):
+            for i, elems in enumerate(rk):
+                for e, v in enumerate(elems):
+                    a[16 * w + g + 8 * (i % 2), ks * step + per * t + (16 if int8 else 8) * (i // 2) + e] = v
+    return a
+
+
+def _w_copy(w, int8):
+    """The kernel's shared copy of w (B, [N][K] K-major, 128-byte swizzle):
+    int8 natural then permuted, 16 KB each; bf16 two 16 KB column blocks.
+    Returns {offset: element}; every offset is written once."""
+    smem = {}
+    for k in range(128):
+        for n in range(128):
+            if int8:
+                offs = (_sw128(n, k), 16384 + _sw128(n, _int8_logical_k(k)))
+            else:
+                offs = ((k >> 6) * 16384 + _sw128(n, (k & 63) * 2),)
+            for o in offs:
+                assert o not in smem
+                smem[o] = w[k, n]
+    return smem
+
+
+def _decode_b(smem, int8, perm):
+    """The [N, K] B operand the descriptors of the k steps read: k step ks
+    starts at byte ks*32 of the row (int8: of copy `perm`; bf16: in column
+    block ks // 4)."""
+    b = np.zeros((128, 128), np.float64)
+    for n in range(128):
+        for k in range(128):
+            if int8:
+                b[n, k] = smem[perm * 16384 + _sw128(n, k)]
+            else:
+                ks, kk = divmod(k, 16)
+                b[n, k] = smem[(ks >> 2) * 16384 + _sw128(n, (ks & 3) * 32 + 2 * kk)]
+    return b
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_card_kernel_index_maps_leave_the_products_unchanged(mode):
+    int8 = mode == "int8"
+    rng = np.random.default_rng(1)
+    w = rng.integers(-3, 3, (128, 128)).astype(np.float64)
+    smem = _w_copy(w, int8)
+    assert len(smem) == (2 if int8 else 1) * 128 * 128
+    # the first product reads w in natural order
+    np.testing.assert_array_equal(_decode_b(smem, int8, 0), w.T)
+    # products 2..8: A from the accumulator of the product before
+    if int8:
+        acc = rng.integers(-3000, 3000, (64, 128)).astype(np.int32)
+        a_vals = pm.wrap_int8(torch.from_numpy(acc)).numpy().astype(np.float64)
+        regs = [_pack_a(pm.wrap_int8(torch.from_numpy(d)).numpy(), True) for d in _fragments(acc)]
+    else:
+        acc = rng.standard_normal((64, 128)).astype(np.float32)
+        a_vals = torch.from_numpy(acc).to(torch.bfloat16).double().numpy()
+        regs = [_pack_a(torch.from_numpy(d).to(torch.bfloat16).double().numpy(), False) for d in _fragments(acc)]
+    a = _decode_a(regs, int8)
+    b = _decode_b(smem, int8, 1 if int8 else 0)
+    if int8:
+        # the registers hold k permuted, and the permuted copy of w alike
+        perm = np.array([_int8_logical_k(k) for k in range(128)])
+        np.testing.assert_array_equal(a[:, perm], a_vals)
+        assert sorted(perm.tolist()) == list(range(128))
+    else:
+        np.testing.assert_array_equal(a, a_vals)
+    np.testing.assert_array_equal(a @ b.T, a_vals @ w)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_card_kernel_output_tile_is_the_accumulator(mode):
+    """The epilogue's writes into the swizzled output tile, read back as the
+    TMA store reads its boxes (64 columns of bf16, or 128 int8, per box),
+    give the accumulator in row-major order."""
+    int8 = mode == "int8"
+    acc = np.arange(64 * 128).reshape(64, 128)
+    tile, frags = {}, _fragments(acc)
+    for tid, w, g, t in _threads():
+        d = frags[tid]
+        for j in range(16):
+            for h in range(2):
+                r = 16 * w + g + 8 * h
+                if int8:
+                    offs = [_sw128(r, 8 * j + 2 * t) + e for e in range(2)]
+                else:
+                    base = (j >> 3) * 64 * 128 + _sw128(r, ((8 * j) & 63) * 2 + 4 * t)
+                    offs = [base + 2 * e for e in range(2)]
+                for e, o in enumerate(offs):
+                    assert o not in tile
+                    tile[o] = d[4 * j + 2 * h + e]
+    elem = 1 if int8 else 2
+    out = np.array([[tile[(c * elem // 128) * 64 * 128 + _sw128(r, (c * elem) % 128)] for c in range(128)]
+                    for r in range(64)])
+    np.testing.assert_array_equal(out, acc)
