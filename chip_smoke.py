@@ -88,7 +88,32 @@ Phases, each of which raises on failure:
         in `fetch`, the loop's time and its idle share;
      j. ResBlock2: EFTS-CNN `synthesize_fixed` at T2=512 into a generator
         at HiFi-GAN V3's widths (plain convs, no MRF launch), f32 and bf16,
-        its time and the vocoder's, finite output;  5. timing with CUDA events (median and quartiles of 20 runs after
+        its time and the vocoder's, finite output;
+     k. serving: `serve.TTSEngine` around EFTS-CNN at bench.py's widths with
+        148 symbols (durations pinned as in `bench/serving_load.py`) and
+        HiFi-GAN V1, f32 and bf16, max_batch 16: the warmup timed; 32 mixed
+        texts through `engine.synthesize` bit-equal to `pipeline.synthesize`
+        on the same padded micro-batches, within the MRF bounds of its
+        plain-MRF run, its pcm16 transfer within one PCM step of the f32
+        one; `make_http_server` on 127.0.0.1:0 answering 32 `/synthesize`
+        requests from 8 client threads, each WAV within the MRF bounds of the
+        engine's waveform for its text; `/synthesize_stream` twice (the
+        first meets the stream's shapes cold; the second's time to its
+        headers, sent with the first chunk, and to its end) against the
+        batch waveform; the time of one micro-batch of 16 at the middle
+        sentence's bucket; an EFTS-Transformer engine (text and mel buckets
+        multiples of 128, bf16) with its attention on the flash kernel,
+        equal to `pipeline.synthesize`; and `bin.inference` on a checkpoint
+        of the served model (config.yml as JSON text), its wavs' PCM equal
+        to `pipeline.synthesize`'s;
+     l. the load bench (`bench/serving_load.py:run_load`) through each warm
+        engine of 4k: Poisson arrivals at 4, 16 and 64 QPS and at the rate
+        one f32 micro-batch of 16 sustains, 10 s each, queue bound 256,
+        deadline 2 s: p50/p95/p99 (null when all were shed), shed counts,
+        mean batch, audio-s/s, per-batch phases and p99 over the batch
+        time; then 4 s at 16 QPS under torch.profiler for the device's
+        idle share;
+  5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
      time by kernel and idle share from torch.profiler, and each MRF stage
@@ -207,6 +232,15 @@ FLASH_FWD_SHAPES = (("decoder", B, 512, False), ("text_encoder", B, 128, True),
 CHUNK_F32_ATOL = 1e-5
 # HiFi-GAN widths below V1's: the V2 generator's and the serving tests' narrow one
 NARROW_VOCODERS = {"hifigan_v2": 128, "hifigan_narrow": 32}
+# the serving engine's micro-batch (bin/serve.py's default) and the load
+# bench's arms: offered rates (plus the rate one f32 batch of 16 at t2 = 512
+# sustains), seconds each, and the profiled arm's seconds
+SERVE_MAX_BATCH = 16
+LOAD_QPS, LOAD_SECONDS, PROFILED_SECONDS = (4.0, 16.0, 64.0), 10.0, 4.0
+# the HTTP stream's f32 PCM against the engine's pcm16 batch waveform: the
+# stream truncates to PCM16 (one step), the batch rounds (half a step), and
+# the decode at max_t2 sums in another order than at the batch's bucket
+STREAM_F32_ATOL = 1.5 / 32767 + CHUNK_F32_ATOL
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -534,6 +568,336 @@ def check_fixed(torch, wav, mel, t2, hop, odim):
         raise AssertionError(f"synthesize_fixed gave wav {tuple(wav.shape)} mel {tuple(mel.shape)}")
 
 
+def engine_reference(pipeline, engine, texts, cdt):
+    """The waveforms `engine.synthesize(texts)` must give: its micro-batches
+    (max_batch texts in order, padded as `_dispatch_batch` pads them) through
+    `pipeline.synthesize` with the engine's arguments, trimmed and scaled as
+    `_fetch_batch` does."""
+    from efficient_tts_tpu_torch.utils.masks import bucket_length
+
+    out = []
+    for lo in range(0, len(texts), engine.max_batch):
+        seqs = [engine.encode(t) for t in texts[lo: lo + engine.max_batch]]
+        bb = engine.batch_bucket(len(seqs))
+        t1 = min(bucket_length(max(len(x) for x in seqs), engine.t1_multiple), engine.max_t1)
+        text = np.zeros((bb, t1), np.int32)
+        lengths = np.ones((bb,), np.int32)
+        for i, x in enumerate(seqs):
+            text[i, : len(x)], lengths[i] = x, len(x)
+        wav, wl = pipeline.synthesize(engine.model, engine.vocoder, text, lengths, bucket_multiple=engine.t2_multiple,
+                                      max_t2=engine.max_t2, compute_dtype=cdt, output="pcm16")
+        out += [wav[i, : int(wl[i])].astype(np.float32) / 32767.0 for i in range(len(seqs))]
+    return out
+
+
+def wav_within(torch, got, want, cdt):
+    """err_stats of two lists of waveforms (joined) and whether they are
+    within the MRF bound of their dtype (F32_WAV_TOL or WAV_TOL)."""
+    stats = err_stats(torch.from_numpy(np.concatenate(got)), torch.from_numpy(np.concatenate(want)))
+    if cdt is None:
+        return stats, stats["max_abs_err"] <= F32_WAV_TOL["max_abs"] and stats["rel_rms"] <= F32_WAV_TOL["rel_rms"]
+    return stats, within(stats, WAV_TOL)
+
+
+def http_post(port, path, text, timeout=300):
+    """(status, body, seconds to the response's headers, seconds to its end)
+    of one POST to the server on 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, json.dumps({"text": text}).encode(), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        t_head = time.perf_counter() - t0
+        body = resp.read()
+        return resp.status, body, t_head, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def wav_pcm(body):
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(body)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def serving_phase(torch, voc, stages, new_launches, serve_flash):
+    """4k: the serving engine on the card, f32 and bf16; returns the load
+    bench's arms' inputs: {dname: (engine, batch_ms)}."""
+    import threading
+
+    from efficient_tts_tpu_torch import compat, init, pipeline
+    from efficient_tts_tpu_torch import serve as serving
+    from efficient_tts_tpu_torch.bench import serving_load, time_ms
+    from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.ops import mrf
+
+    bf16 = torch.bfloat16
+    s_cfg, s_params = serving_load.pinned_efts_params()
+    model = compat.efts_cnn_from_jax(s_params, s_cfg, device="cuda")
+    texts = [serving_load.SENTENCES[i % 3] for i in range(2 * SERVE_MAX_BATCH)]
+    hop = voc.cfg.hop_size
+    out = {}
+    for cdt, dname in ((None, "f32"), (bf16, "bf16")):
+        engine = serving.TTSEngine(model, voc, max_batch=SERVE_MAX_BATCH, compute_dtype=cdt)
+        t0 = time.perf_counter()
+        serving_load.warm(engine, SERVE_MAX_BATCH)
+        warm_s = time.perf_counter() - t0
+        # the main path: 2 x max_batch mixed texts through the engine
+        mrf.reset_launches()
+        got = engine.synthesize(texts)
+        launches = new_launches["serve_engine", dname] = dict(mrf.launches)
+        want = engine_reference(pipeline, engine, texts, cdt)
+        equal = all(g.shape == w.shape and np.array_equal(g, w) for g, w in zip(got, want))
+        lengths = [len(w) for w in got]
+        plain = serving.TTSEngine(model, voc, max_batch=SERVE_MAX_BATCH, compute_dtype=cdt, mrf_impl="plain")
+        got_plain = plain.synthesize(texts)
+        plain_stats, plain_ok = wav_within(torch, got, got_plain, cdt)
+        f32_out = serving.TTSEngine(model, voc, max_batch=SERVE_MAX_BATCH, compute_dtype=cdt, pcm16_transfer=False)
+        got_f32 = f32_out.synthesize(texts)
+        pcm_err = max(float(np.abs(g - w).max()) for g, w in zip(got, got_f32))
+        # one micro-batch of max_batch utterances at t2 = 512 (the middle
+        # sentence), the batch time the load bench's arms are held against
+        mid = engine.encode(serving_load.SENTENCES[1])
+        t1 = -(-len(mid) // engine.t1_multiple) * engine.t1_multiple
+        text16 = np.zeros((SERVE_MAX_BATCH, t1), np.int32)
+        text16[:, : len(mid)] = mid
+        len16 = np.full((SERVE_MAX_BATCH,), len(mid), np.int32)
+        t2_mid = int(pipeline.predict_lengths(model, text16, len16).max())
+        t2_mid = -(-t2_mid // engine.t2_multiple) * engine.t2_multiple
+        batch = time_ms(lambda: pipeline.synthesize_fixed(model, voc, text16, len16, t2_mid, compute_dtype=cdt,
+                                                          output="pcm16"), iters=10)
+        expected = stage_launches(stages, dname, 2)
+        log({"phase": "main_path", "what": "serve.TTSEngine.synthesize", "dtype": dname, "texts": len(texts),
+             "max_batch": SERVE_MAX_BATCH, "warmup_s": warm_s, "mrf_launches": keyed(launches),
+             "expected": keyed(expected), "wav_seconds": [n / voc.cfg.sampling_rate for n in lengths[:3]],
+             "equal_to_pipeline_synthesize": equal, "vs_plain_mrf": plain_stats,
+             "plain_tolerance": WAV_TOL if cdt is not None else F32_WAV_TOL, "pcm16_vs_f32_transfer_max": pcm_err,
+             "pcm16_tolerance": 1 / 32767, "batch_t2": t2_mid, "batch_ms": batch["median"],
+             "batch_ms_p25": batch["p25"], "batch_ms_p75": batch["p75"],
+             "sustained_qps": SERVE_MAX_BATCH / (batch["median"] / 1e3)})
+        if launches != expected:
+            raise AssertionError(f"the engine in {dname} launched MRF {launches}, expected {expected}")
+        if not equal:
+            raise AssertionError(f"the engine in {dname} differs from pipeline.synthesize on its micro-batches")
+        if [len(w) for w in got_plain] != lengths or not plain_ok:
+            raise AssertionError(f"the engine in {dname} disagrees with its plain-MRF run: {plain_stats}")
+        if pcm_err > 1 / 32767:
+            raise AssertionError(f"the pcm16 engine in {dname} is {pcm_err * 32767} steps from the f32 one")
+        del plain, f32_out, got_plain, got_f32
+
+        # the HTTP server: 8 client threads, 4 requests each, /synthesize
+        ref = dict(zip(texts, got))
+        server = serving.make_http_server(engine, host="127.0.0.1", port=0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        results, errors = [], []
+        try:
+            mrf.reset_launches()
+
+            def client(k):
+                try:
+                    for j in range(4):
+                        text = serving_load.SENTENCES[(k + j) % 3]
+                        code, body, _, secs = http_post(port, "/synthesize", text)
+                        results.append((text, code, body, secs))
+                except Exception as e:  # noqa: BLE001
+                    errors.append(repr(e))
+
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(300)
+            http_s = time.perf_counter() - t0
+            http_launches = new_launches["serve_http", dname] = dict(mrf.launches)
+            # one stream: the time to its response headers (sent once the first
+            # chunk is ready) and to its end, against the batch waveform. The
+            # warmup covers the batch grid only, so the first stream meets the
+            # decode at max_t2 and the windows' shapes cold; the second is timed
+            stream_text = serving_load.SENTENCES[2]
+            _, _, cold_first_s, cold_whole_s = http_post(port, "/synthesize_stream", stream_text)
+            mrf.reset_launches()
+            code_s, raw, first_s, whole_s = http_post(port, "/synthesize_stream", stream_text)
+            stream_launches = new_launches["serve_stream", dname] = dict(mrf.launches)
+            stats_http = json.loads(http_get(port, "/stats"))
+        finally:
+            server.shutdown()
+            server.batcher.close()
+            server.server_close()
+            thread.join(10)
+        if errors or len(results) != 32 or any(code != 200 for _, code, _, _ in results):
+            raise AssertionError(f"HTTP /synthesize in {dname}: {errors or [r[1] for r in results]}")
+        served = [wav_pcm(body).astype(np.float32) / 32767.0 for _, _, body, _ in results]
+        direct = [ref[text] for text, _, _, _ in results]
+        if [len(a) for a in served] != [len(b) for b in direct]:
+            raise AssertionError(f"HTTP /synthesize in {dname}: lengths differ from the engine's")
+        http_stats, http_ok = wav_within(torch, served, direct, cdt)
+        lat = sorted(secs for _, _, _, secs in results)
+        n_batches = http_launches.get((dname, stages[0][0]), 0) // 18
+        log({"phase": "main_path", "what": "serve.make_http_server /synthesize", "dtype": dname, "clients": 8,
+             "requests": len(results), "seconds": http_s, "latency_ms_p50": 1e3 * lat[len(lat) // 2],
+             "latency_ms_max": 1e3 * lat[-1], "mrf_launches": keyed(http_launches), "batches": n_batches,
+             "vs_engine": http_stats, "tolerance": WAV_TOL if cdt is not None else F32_WAV_TOL,
+             "stats": stats_http})
+        if not http_ok or not n_batches or http_launches != stage_launches(stages, dname, n_batches):
+            raise AssertionError(f"HTTP /synthesize in {dname}: {http_stats}, launches {http_launches}")
+        if code_s != 200:
+            raise AssertionError(f"HTTP /synthesize_stream in {dname} gave {code_s}")
+        streamed = np.frombuffer(raw, "<i2").astype(np.float32) / 32767.0
+        batch_wav = ref[stream_text]
+        # the last frames differ: the stream's last window ends at the true
+        # edge, the batch pads its mel with zeros to the bucket
+        n = len(batch_wav) - 20 * hop
+        s_stats = err_stats(torch.from_numpy(streamed[:n]), torch.from_numpy(batch_wav[:n]))
+        s_ok = (s_stats["max_abs_err"] <= STREAM_F32_ATOL if cdt is None else within(s_stats, WAV_TOL))
+        n_win = stream_launches.get((dname, stages[0][0]), 0) // 18
+        log({"phase": "main_path_vs_batch", "what": "serve /synthesize_stream", "dtype": dname,
+             "samples": len(streamed), "batch_samples": len(batch_wav), "compared_samples": n, **s_stats,
+             "tolerance": {"max_abs": STREAM_F32_ATOL} if cdt is None else WAV_TOL, "first_chunk_ms": 1e3 * first_s,
+             "whole_stream_ms": 1e3 * whole_s, "cold_first_chunk_ms": 1e3 * cold_first_s,
+             "cold_whole_stream_ms": 1e3 * cold_whole_s, "windows": n_win, "mrf_launches": keyed(stream_launches)})
+        if len(streamed) != len(batch_wav) or not s_ok or not n_win or stream_launches != stage_launches(
+                stages, dname, n_win):
+            raise AssertionError(f"the stream in {dname} disagrees with the batch waveform: {s_stats}, "
+                                 f"launches {stream_launches}")
+        out[dname] = (engine, batch["median"])
+
+    # an EFTS-Transformer behind the engine: its attention on the flash
+    # kernel (text and mel buckets multiples of 128), bf16
+    tr_cfg = EftsTransformerConfig(num_symbols=148, dropout_rate=0.0, sigma=0.01, attn_impl="flash")
+    tr_params = init.init_efts_transformer(2, tr_cfg)
+    tr_params["duration_predictor"]["out"]["b"][:] = 1.3
+    tr = compat.efts_transformer_from_jax(tr_params, tr_cfg, device="cuda")
+    tr_engine = serving.TTSEngine(tr, voc, max_batch=SERVE_MAX_BATCH, t1_multiple=128, t2_multiple=128,
+                                  compute_dtype=bf16)
+    tr_texts = texts[:SERVE_MAX_BATCH]
+    fa.reset_launches()
+    mrf.reset_launches()
+    got = tr_engine.synthesize(tr_texts)
+    serve_flash.update(flash_by_segments(fa.launches))
+    tr_mrf = dict(mrf.launches)
+    want = engine_reference(pipeline, tr_engine, tr_texts, bf16)
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    expected_flash = {True: tr_cfg.n_text_encoder_layer, False: tr_cfg.n_decoder_layer}
+    log({"phase": "main_path", "what": "serve.TTSEngine.synthesize, EFTS-Transformer", "dtype": "bf16",
+         "texts": len(tr_texts), "flash_launches": {str(k): v for k, v in serve_flash.items()},
+         "flash_expected": {str(k): v for k, v in expected_flash.items()}, "mrf_launches": keyed(tr_mrf),
+         "equal_to_pipeline_synthesize": equal})
+    if serve_flash != expected_flash or tr_mrf != stage_launches(stages, "bf16", 1) or not equal:
+        raise AssertionError(f"the transformer engine launched flash {serve_flash}, MRF {tr_mrf}, equal={equal}")
+    return out
+
+
+def inference_cli_phase(torch, voc, stages, new_launches):
+    """4k, the inference CLI: a checkpoint of the served EFTS-CNN with its
+    config.yml written as JSON text (which YAML readers take too), the
+    sentences synthesized twice (--repeats 2) with the CLI's random V1
+    vocoder (the weights of `voc`), each written wav's PCM against
+    `pipeline.synthesize` on the same batch."""
+    import dataclasses
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from efficient_tts_tpu_torch import compat, pipeline
+    from efficient_tts_tpu_torch.bench import serving_load
+    from efficient_tts_tpu_torch.bin import inference
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.text import text_to_sequence
+    from efficient_tts_tpu_torch.train.checkpoint import save_checkpoint
+    from efficient_tts_tpu_torch.utils.masks import pad_list
+
+    cfg, params = serving_load.pinned_efts_params()
+    model = compat.efts_cnn_from_jax(params, cfg, device="cuda")
+    sentences = serving_load.SENTENCES
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(os.path.join(tmp, "efts"), {"params": model, "opt_state": None, "step": 0})
+        with open(os.path.join(tmp, "efts", "config.yml"), "w") as f:
+            json.dump({"model_name": "EfficientTTSCNN", "model_params": dataclasses.asdict(cfg)}, f)
+        scp = os.path.join(tmp, "test.txt")
+        with open(scp, "w") as f:
+            f.writelines(f"wavs/u{i}.wav|{t}\n" for i, t in enumerate(sentences))
+        mrf.reset_launches()
+        inference.main(["--test_fid_scp", scp, "--checkpoint", ckpt, "--outdir", os.path.join(tmp, "out"),
+                        "--batch_size", str(len(sentences)), "--repeats", "2",
+                        "--timing_json", os.path.join(tmp, "timing.json")])
+        launches = new_launches["inference_cli", "f32"] = dict(mrf.launches)
+        with open(os.path.join(tmp, "timing.json")) as f:
+            timing = json.load(f)
+        seqs = [np.asarray(text_to_sequence(t), np.int32) for t in sentences]
+        wav, wl = pipeline.synthesize(model, voc, pad_list(seqs), np.asarray([len(x) for x in seqs], np.int32))
+        steps = []
+        for i in range(len(sentences)):
+            sr, pcm = wavfile.read(os.path.join(tmp, "out", f"u{i}_gen.wav"))
+            want = (np.clip(wav[i, : int(wl[i])], -1.0, 1.0) * 32767).astype(np.int16)
+            if sr != voc.cfg.sampling_rate or pcm.shape != want.shape:
+                raise AssertionError(f"the inference CLI wrote {pcm.shape} at {sr} Hz, expected {want.shape}")
+            steps.append(int(np.abs(pcm.astype(np.int32) - want).max()))
+    log({"phase": "main_path", "what": "bin.inference", "dtype": "f32", "utterances": len(sentences),
+         "passes": timing["passes"], "mrf_launches": keyed(launches), "max_pcm_steps_vs_pipeline": max(steps),
+         "pyyaml": yaml_available()})
+    # one batch of the three sentences in each of the two passes
+    if max(steps) != 0 or launches != stage_launches(stages, "f32", 2):
+        raise AssertionError(f"the inference CLI: PCM steps {steps}, launches {launches}")
+
+
+def yaml_available():
+    import importlib.util
+
+    return importlib.util.find_spec("yaml") is not None
+
+
+def http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.read()
+
+
+def load_bench_phase(torch, engines, new_launches):
+    """4l: the load bench's arms through each warm engine of 4k, then one
+    arm under torch.profiler for the device's idle share."""
+    from efficient_tts_tpu_torch.bench import serving_load
+    from efficient_tts_tpu_torch.ops import mrf
+
+    sustained = SERVE_MAX_BATCH / (engines["f32"][1] / 1e3)
+    for dname, (engine, batch_ms) in engines.items():
+        rng = np.random.default_rng(0)
+        mrf.reset_launches()
+        for qps in (*LOAD_QPS, sustained):
+            row = serving_load.run_load(engine, qps, LOAD_SECONDS, rng, max_queue=256, deadline_ms=2000.0)
+            log({"phase": "load_bench", "dtype": dname, **row, "batch_ms": batch_ms,
+                 "p99_over_batch_ms": row["p99_ms"] / batch_ms if row["p99_ms"] is not None else None})
+            if row["completed"] == 0:
+                raise AssertionError(f"the load bench's {qps} QPS arm in {dname} completed nothing: {row}")
+        new_launches["serving_load", dname] = dict(mrf.launches)
+        # the idle share: one short arm at 16 QPS under the profiler (its
+        # latencies carry the profiler's host cost and are not an arm's)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            row = serving_load.run_load(engine, 16.0, PROFILED_SECONDS, rng, max_queue=256, deadline_ms=2000.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                us = getattr(evt, "self_device_time_total", None)
+                busy += (us if us is not None else evt.self_cuda_time_total) / 1e6
+        log({"phase": "load_bench", "what": "profiled arm", "dtype": dname, "offered_qps": 16.0,
+             "seconds": wall, "completed": row["completed"], "device_busy_s": busy if busy else "not measured",
+             "idle_share": 1.0 - busy / wall if busy else "not measured"})
+
+
 def build_tree(path):
     """Compile `path`'s flash_attention.cu, mrf_stage_int8.cu and
     probe_matmul.cu (their headers beside them) with the port's nvcc flags
@@ -704,7 +1068,8 @@ def main(argv=None) -> int:
     # 1. device
     card = card_line()
     CARD["card"] = card
-    log({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    log({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+         "pyyaml": yaml_available()})
 
     # 2. build
     t0 = time.perf_counter()
@@ -1263,6 +1628,14 @@ def main(argv=None) -> int:
              **({"vs_f32": err_stats(wav, v3_wavs["f32"])} if dname == "bf16" else {})})
     del voc3, v3_wavs
 
+    # 4k. the serving engine, its HTTP server and stream on the card, and the
+    # inference CLI; 4l. the load bench through the warm engines
+    serve_flash = {}
+    engines = serving_phase(torch, voc, stages, new_launches, serve_flash)
+    inference_cli_phase(torch, voc, stages, new_launches)
+    load_bench_phase(torch, engines, new_launches)
+    del engines
+
     # 5. timing
     def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16):
         """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
@@ -1453,12 +1826,15 @@ def main(argv=None) -> int:
         bound, bound_by, flops = flash_bound_ms(q, seg)
         path = "efts_transformer_training" if training else "efts_transformer"
         n_launch = train_launches.get(("fwd", t, True), 0) if training else tr_flash.get(segmented, 0)
+        by_path = {path: n_launch}
+        if not training:
+            by_path["serve_engine_transformer"] = serve_flash.get(segmented, 0)
         row = {
             "name": "flash_attention_fwd_" + name, "route": "cuda",
             "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
             "replaces": "efficient_tts_tpu/nn/attention.py:56",
             "pallas_call": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (jax 0.9.0)",
-            "launches": n_launch, "launches_by_path": {path: n_launch},
+            "launches": n_launch, "launches_by_path": by_path,
             **flash_rows[name], "tolerance": FLASH_TOL, "precision": "tf32 operands, f32 softmax and sums",
             "ms": k_dev, "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": ms["library"], "library_call": "F.scaled_dot_product_attention, f32, boolean mask",

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` becomes `_build/<name>.<hash>.so`, where the hash
 covers the source, the shared `csrc/*.cuh` headers and the flags, so an
 edited source or header is rebuilt and an
 unchanged one is reused. All sources compile in parallel (one nvcc each).
-Nothing here runs at import time.
+Nothing here runs at import time. A build and a load hold one lock, so
+threads that reach a kernel's first use together build it once.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +28,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# re-entrant: `load` builds while holding it
+_lock = threading.RLock()
 
 
 def nvcc() -> str:
@@ -49,34 +53,36 @@ def build(verbose: bool = False) -> dict:
     "log"}} where `log` holds nvcc's output (with `-Xptxas -v` when
     `verbose`, the registers and shared memory of each kernel)."""
     extra = ("-Xptxas", "-v") if verbose else ()
-    BUILD_DIR.mkdir(exist_ok=True)
-    jobs = {}
-    results = {}
-    t0 = time.perf_counter()
-    for src in sorted(SRC_DIR.glob("*.cu")):
-        out = _target(src)
-        if out.exists():
-            results[src.stem] = {"path": out, "seconds": 0.0, "log": "cached"}
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
-        jobs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
-    for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-        os.replace(tmp, out)
-        results[name] = {"path": out, "seconds": time.perf_counter() - t0, "log": log}
-    return results
+    with _lock:
+        BUILD_DIR.mkdir(exist_ok=True)
+        jobs = {}
+        results = {}
+        t0 = time.perf_counter()
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            out = _target(src)
+            if out.exists():
+                results[src.stem] = {"path": out, "seconds": 0.0, "log": "cached"}
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}")
+            cmd = [nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
+            jobs[src.stem] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        for name, (proc, tmp, out) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            os.replace(tmp, out)
+            results[name] = {"path": out, "seconds": time.perf_counter() - t0, "log": log}
+        return results
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from `csrc/<name>.cu`, built if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        out = _target(SRC_DIR / f"{name}.cu")
-        if not out.exists():
-            build()
-        lib = _loaded[name] = ctypes.CDLL(str(out))
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            out = _target(SRC_DIR / f"{name}.cu")
+            if not out.exists():
+                build()
+            lib = _loaded[name] = ctypes.CDLL(str(out))
+        return lib

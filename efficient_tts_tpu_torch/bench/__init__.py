@@ -1,11 +1,13 @@
-"""Card benchmarks of single kernels, ports of the JAX package's scripts.
+"""Card benchmarks, ports of the JAX package's scripts.
 
-    python -m efficient_tts_tpu_torch.bench.mrf_fused    # scripts/bench_mrf_fused.py
-    python -m efficient_tts_tpu_torch.bench.probe_int8   # scripts/probe_int8_pallas.py
+    python -m efficient_tts_tpu_torch.bench.mrf_fused      # scripts/bench_mrf_fused.py
+    python -m efficient_tts_tpu_torch.bench.probe_int8     # scripts/probe_int8_pallas.py
+    python -m efficient_tts_tpu_torch.bench.serving_load   # scripts/bench_serving_load.py
 
-Each runs on the NVIDIA card and raises without one. Times are medians of
-CUDA-event times of ITERS calls after WARMUP calls, printed under the
-card's name and power limit.
+Each runs on the NVIDIA card and raises without one, and prints under the
+card's name and power limit. The kernel benches' times are medians of
+CUDA-event times of ITERS calls after WARMUP calls; the serving bench's are
+request latencies on the host clock.
 """
 
 from __future__ import annotations

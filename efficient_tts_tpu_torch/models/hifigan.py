@@ -19,6 +19,7 @@ are re-layouts for the TPU and are not carried over.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -31,6 +32,9 @@ from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_de
 from efficient_tts_tpu_torch.utils.precision import full_f32
 
 LRELU_SLOPE = 0.1
+# `MRFStage.kernel_weights` looks up and makes its cache entry under this
+# lock, so threads that serve one generator make a stage's TMA descriptors once
+_KERNEL_WEIGHTS_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +99,13 @@ class MRFStage(nn.Module):
         the width is not a multiple of 32), made again whenever the weights'
         or the biases' buffer moves or changes in place (`load`,
         `load_state_dict` and `copy_` each bump its version counter)."""
-        ws = self.conv_weights(dtype)
-        key = (dtype, ws[0].device, ws[0].data_ptr(), ws[0]._version, self.bias.data_ptr(), self.bias._version)
-        kw = self._kernel_weights.get(dtype)
-        if kw is None or kw[0] != key:
-            kw = self._kernel_weights[dtype] = (key, kernel_weights(ws, self.bias))
-        return kw[1]
+        with _KERNEL_WEIGHTS_LOCK:
+            ws = self.conv_weights(dtype)
+            key = (dtype, ws[0].device, ws[0].data_ptr(), ws[0]._version, self.bias.data_ptr(), self.bias._version)
+            kw = self._kernel_weights.get(dtype)
+            if kw is None or kw[0] != key:
+                kw = self._kernel_weights[dtype] = (key, kernel_weights(ws, self.bias))
+            return kw[1]
 
     def forward(self, x, impl: str = "kernel"):
         if impl == "plain":

@@ -43,6 +43,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from efficient_tts_tpu_torch.ops import launch_counts
+
 # the library's DEFAULT_MASK_VALUE as f32 sees it
 MASK_VALUE = float(np.float32(-0.7 * float(np.finfo(np.float32).max)))
 # launches of the CUDA kernels, keyed by (kernel, Tq, whether the call had
@@ -63,8 +65,7 @@ def reset_launches() -> None:
 
 
 def _count(kernel: str, tq: int, segment_ids) -> None:
-    key = (kernel, tq, segment_ids is not None)
-    launches[key] = launches.get(key, 0) + 1
+    launch_counts.add(launches, (kernel, tq, segment_ids is not None))
 
 
 def _logits(q, k, segment_ids, sm_scale):

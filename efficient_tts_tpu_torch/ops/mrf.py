@@ -40,13 +40,15 @@ import torch
 import torch.nn.functional as F
 
 from efficient_tts_tpu_torch.nn.layers import leaky_relu
+from efficient_tts_tpu_torch.ops import launch_counts
 
 LRELU_SLOPE = 0.1
 # the kernels take C a multiple of CHANNEL_STEP up to MAX_KERNEL_CHANNELS
 MAX_KERNEL_CHANNELS, CHANNEL_STEP = 256, 32
 # conv launches of the CUDA kernels, by (dtype name, channels the kernel ran
 # at); only `mrf_stage` adds. `mrf_stage_any_width` adds ("plain", C) once for
-# each card stage too wide for the kernels.
+# each card stage too wide for the kernels. Added to under a lock
+# (`launch_counts.add`): the serving engine launches from several threads.
 launches: dict[tuple[str, int], int] = {}
 
 _RESIDUAL, _ADD_SUM, _AVERAGE = 1, 2, 4
@@ -287,7 +289,7 @@ def mrf_stage(x, weights, biases, kernel_sizes, dilation_sizes):
                 dst.data_ptr(), b, t, c, weights[i].shape[0], d, flags, n_branches, slope, stream)
         if rc != 0:
             raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-        launches[name, c] = launches.get((name, c), 0) + 1
+        launch_counts.add(launches, (name, c))
 
     with torch.cuda.device(x.device):
         return stage_launches(x, n_branches, dilation_sizes, launch)
@@ -303,7 +305,7 @@ def mrf_stage_any_width(x, weights, biases, kernel_sizes, dilation_sizes):
     counted as ("plain", C), before any launch."""
     c = x.shape[-1]
     if x.device.type == "cuda" and kernel_channels(c) is None:
-        launches["plain", c] = launches.get(("plain", c), 0) + 1
+        launch_counts.add(launches, ("plain", c))
         return mrf_stage_reference(x, weights, biases, kernel_sizes, dilation_sizes)
     if isinstance(weights, KernelWeights) and weights.channels is not None:
         if weights.channels != c:

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from efficient_tts_tpu_torch.nn.layers import leaky_relu
+from efficient_tts_tpu_torch.ops import launch_counts
 from efficient_tts_tpu_torch.ops.mrf import (LRELU_SLOPE, KernelWeights, check_stage, conv_plain, stage_chain,
                                              stage_launches, true_div)
 
@@ -195,7 +196,7 @@ def mrf_stage_int8(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scal
             rc = lib.mrf_absmax(x.data_ptr(), amax[0].data_ptr(), b, t, c, slope, stream)
             if rc != 0:
                 raise RuntimeError(f"mrf_absmax launch failed: CUDA error {rc}")
-            launches["absmax", c] = launches.get(("absmax", c), 0) + 1
+            launch_counts.add(launches, ("absmax", c))
             row_of[x.data_ptr()] = 0
 
         def launch(src, i, d, res, dst, flags):
@@ -209,6 +210,6 @@ def mrf_stage_int8(x, wq, scales, biases, kernel_sizes, dilation_sizes, act_scal
                                    amax_out, b, t, c, wq[i].shape[0], d, flags, len(kernel_sizes), slope, stream)
             if rc != 0:
                 raise RuntimeError(f"mrf_conv_int8 launch failed: CUDA error {rc}")
-            launches[kind, c] = launches.get((kind, c), 0) + 1
+            launch_counts.add(launches, (kind, c))
 
         return stage_launches(x, len(kernel_sizes), dilation_sizes, launch)

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from efficient_tts_tpu_torch.ops import launch_counts
 from efficient_tts_tpu_torch.utils.precision import full_f32
 
 K = 128
@@ -85,5 +86,5 @@ def probe_matmul(x, w, repeat: int = 8):
         rc = _lib().probe_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, repeat, mode, stream)
     if rc != 0:
         raise RuntimeError(f"probe_matmul launch failed: CUDA error {rc}")
-    launches[name] = launches.get(name, 0) + 1
+    launch_counts.add(launches, name)
     return out

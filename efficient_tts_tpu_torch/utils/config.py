@@ -1,0 +1,76 @@
+"""Config files: the `config.yml` beside a checkpoint -> the port's model configs.
+
+Counterpart of `efficient_tts_tpu/utils/config.py` (`load_config`,
+`model_config_from_dict`, `vocoder_config_from_dict`,
+`vocoder_config_near_checkpoint`). The optimizer block is read by
+`train/optim.py:optimizer_from_dict`.
+
+PyYAML is imported only when a file is read, and only when the text is not
+JSON: a config written as JSON (which is also YAML) loads without it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
+from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+
+
+def _parse(text: str, path: str) -> dict:
+    try:
+        return json.loads(text)
+    except ValueError:
+        pass
+    try:
+        import yaml
+    except ImportError:
+        raise ImportError(f"{path} is not JSON, and reading it as YAML needs PyYAML, which is not installed") from None
+    return yaml.safe_load(text)
+
+
+def load_config(path: str) -> dict:
+    with open(path) as f:
+        return _parse(f.read(), path) or {}
+
+
+def model_config_from_dict(config: dict):
+    """The acoustic model's config from `model_name` / `model_params`."""
+    name = config.get("model_name", "EfficientTTSCNN")
+    params = dict(config.get("model_params", {}))
+    if name == "EfficientTTSCNN":
+        # translate reference-style kwargs to dataclass fields
+        params.pop("use_weighted_masking", None)  # broken/unused in the reference
+        act_params = params.pop("nonlinear_activation_params", None)
+        params.pop("nonlinear_activation", None)
+        if act_params and "negative_slope" in act_params:
+            params["leaky_slope"] = act_params["negative_slope"]
+        return EftsCNNConfig(**params)
+    if name == "EfficientTTSTransformer":
+        params.pop("use_weighted_masking", None)
+        return EftsTransformerConfig(**params)
+    if name == "DurationModel":
+        raise NotImplementedError("the DurationModel is not ported yet (ROADMAP Queue 1 item 9)")
+    raise ValueError(f"unknown model_name: {name}")
+
+
+def _deep_tuple(v):
+    return tuple(_deep_tuple(x) for x in v) if isinstance(v, list) else v
+
+
+def vocoder_config_from_dict(config: dict) -> HiFiGANConfig:
+    """`HiFiGANConfig` from a config dict's `vocoder_params`, nested lists
+    made tuples (the config is a frozen, hashable dataclass)."""
+    return HiFiGANConfig(**{k: _deep_tuple(v) for k, v in dict(config.get("vocoder_params", {})).items()})
+
+
+def vocoder_config_near_checkpoint(path: str | None) -> HiFiGANConfig:
+    """The HiFiGANConfig of a vocoder checkpoint: from the `config.yml` beside
+    it when there is one, else the defaults (V1)."""
+    if path:
+        cfg_file = os.path.join(os.path.dirname(os.path.abspath(path)), "config.yml")
+        if os.path.exists(cfg_file):
+            return vocoder_config_from_dict(load_config(cfg_file))
+    return HiFiGANConfig()

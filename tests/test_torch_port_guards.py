@@ -43,7 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the training slice's modules, the int8 ops and the benchmarks are among those imported
     for name in ("train.efts_train_step", "train.efts_trainer", "train.optim", "train.checkpoint",
                  "losses.fastspeech", "utils.preemption", "ops.mrf_int8", "ops.probe_matmul",
-                 "bench.mrf_fused", "bench.probe_int8"):
+                 "bench.mrf_fused", "bench.probe_int8", "serve", "bin.serve", "bin.inference",
+                 "bench.serving_load", "text", "text.cleaners", "text.mandarin", "utils.config",
+                 "data.dataset", "ops.launch_counts"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -53,9 +55,13 @@ VOC_CFG = HiFiGANConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
                         resblock_dilation_sizes=((1,),))
 
 
-def test_entry_points_default_to_cuda_and_raise_without_a_card():
+def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.bench import serving_load
+    from efficient_tts_tpu_torch.bin import inference, serve as serve_cli
+    from efficient_tts_tpu_torch.serve import TTSEngine
+
     ep, vp = init.init_efts(0, EFTS_CFG), init.init_generator(1, VOC_CFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         compat.efts_cnn_from_jax(ep, EFTS_CFG)
@@ -71,9 +77,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
                  lambda: pipeline.decode_mel_fixed(em, text, lengths, 32),
                  lambda: pipeline.synthesize_dispatch(em, vm, text, lengths),
                  lambda: pipeline.stream_vocoder(vm, mel[0]),
-                 lambda: generator_chunked(vm, mel)):
+                 lambda: generator_chunked(vm, mel),
+                 lambda: TTSEngine(em, vm),
+                 lambda: serve_cli.main(["--random_init"]),
+                 lambda: inference.main(["--test_fid_scp", str(tmp_path / "list.txt"), "--checkpoint",
+                                         str(tmp_path / "checkpoint"), "--outdir", str(tmp_path / "out")]),
+                 lambda: serving_load.build_engine(max_batch=2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    assert TTSEngine(em, vm, device="cpu").device.type == "cpu"
     wav, wl = pipeline.synthesize(em, vm, text, lengths, device="cpu")
     assert wav.shape[0] == 1 and wl.shape == (1,)
     handle, wl = pipeline.synthesize_dispatch(em, vm, text, lengths, device="cpu")
