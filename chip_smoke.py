@@ -113,6 +113,31 @@ Phases, each of which raises on failure:
         mean batch, audio-s/s, per-batch phases and p99 over the batch
         time; then 4 s at 16 QPS under torch.profiler for the device's
         idle share;
+     m. training on a corpus: EFTS-CNN at `configs/lj_efts_cnn_char.yaml`'s
+        widths (148 symbols, 512 channels, 5/3/6 res-conv layers) from seeded
+        weights through `compat` (`trainable=True`): the first step's loss
+        and every gradient leaf on the card against the same step on the
+        CPU, f32, a ragged batch of 4; a seeded synthetic corpus
+        (`bench/corpus.py`: 384 train and 16 dev utterances of 1.5-10 s,
+        PCM_16 at 22050 Hz) in a temporary directory; `bin.train` on the
+        char yaml (`--set` for the wav path, the mel memory cache and the
+        steps and intervals): 12 steps at B=128 (3 batches an epoch) with
+        finite losses, checkpoints at 6 and 12, `config.yml` and evals at 6
+        and 12, then `--resume` to step 14; `bin.inference` on
+        checkpoint-14steps, 8 utterances in one batch, its PCM equal to
+        `pipeline.synthesize` on the folded model and 72 f32 MRF launches;
+        the EFTS-Transformer's yaml through the same CLI (dropout 0, text
+        and mel buckets of 128, char input, 148 symbols) for 4 steps at
+        B=64, 10 forward, 10 dkv and 10 dq flash launches a step; then the
+        EFTS-CNN step at B=128 on the middle of the corpus's three
+        length-sorted batches (CUDA events, median of 10 after 2 warmup
+        calls; its T1 and T2), its profile (busy, idle share, top kernels,
+        launches a step), its peak memory, and the CLI run's step wall and
+        data wait in the first epoch (mel extraction, by the native or the
+        numpy path) and in the cached epochs; after it, the flash forward,
+        dkv and dq at every other length the CLI ran ([64, 4, T, 96] with
+        ragged ids; T = 256, 640, 768, 896 on this corpus) against
+        `flash_attention_reference` and its autograd, as in phase 3;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -123,7 +148,7 @@ Phases, each of which raises on failure:
      models; the W8A8 kernel beside K1 and the cuDNN bf16 stage at the
      bench's shape, and its plain version; the probe beside its plain
      version and the library's chains, and its int8:bf16 rate ratio. The flash kernels at
-     their shapes, their plain versions and `F.scaled_dot_product_attention`
+     their shapes (and at the CLI's other lengths, a row each), their plain versions and `F.scaled_dot_product_attention`
      (forward, and its backward for the backward kernels) are timed by
      their device time (torch.profiler, 20 calls), since one call's
      CUDA-event time there is mostly the host's launch time, which is
@@ -241,6 +266,14 @@ LOAD_QPS, LOAD_SECONDS, PROFILED_SECONDS = (4.0, 16.0, 64.0), 10.0, 4.0
 # stream truncates to PCM16 (one step), the batch rounds (half a step), and
 # the decode at max_t2 sums in another order than at the batch's bucket
 STREAM_F32_ATOL = 1.5 / 32767 + CHUNK_F32_ATOL
+# 4m: EFTS-CNN's first step on the card against the CPU, f32 (cuDNN and
+# cuBLAS with TF32 off): the loss, and each gradient leaf within 1e-4 of its
+# own largest magnitude plus 1e-7 of the tree's largest (the CPU tests' bound
+# against JAX)
+CNN_CPU_TOL = {"loss_rel": 1e-4, "leaf_of_own_max": 1e-4, "leaf_of_tree_max": 1e-7}
+# the synthetic corpus: utterances and the mel memory cache (MB) that holds
+# the train set's mels, about 70 MB
+CORPUS_TRAIN, CORPUS_DEV, CORPUS_MEL_CACHE_MB = 384, 16, 128
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -431,10 +464,38 @@ def flash_inputs(torch, t, seed, dev, segmented, b=B, n=3):
     return (*xs, seg)
 
 
-def flash_grads(torch, fn, q, k, v, do, seg, scale):
-    """dq, dk, dv of fn(q, k, v, seg, scale) for the upstream gradient do."""
+def check_flash_backward(torch, fa, t, segmented, dev, bwd_rows):
+    """One training call of the flash kernels at [64, 4, t, 96] (forward with
+    residuals, dkv, dq) against `flash_attention_reference` and its autograd:
+    dq, dk and dv at BWD_TOL, one launch of each kernel. Puts each backward
+    kernel's errors into bwd_rows[kernel, t, segmented] and returns the
+    forward output's errors, against the plain output."""
+    q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    return torch.autograd.grad(fn(*xs, seg, scale), xs, do)
+    fa.reset_launches()
+    out = fa.flash_attention(*xs, seg, sm_scale=96**-0.5)
+    got = torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    if fa.launches != {(kernel, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}:
+        raise AssertionError(f"one backward launched {fa.launches}")
+    ref_xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref_out = fa.flash_attention_reference(*ref_xs, seg, sm_scale=96**-0.5)
+    ref = torch.autograd.grad(ref_out, ref_xs, do)
+    fwd = err_stats(out.detach(), ref_out.detach())
+    stats = {name: err_stats(g_, r_) for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref)}
+    log({"phase": "kernel_vs_plain", "kernel": "flash_attention_backward", "shape": list(q.shape),
+         "segment_ids": segmented, "forward": fwd, **stats, "tolerance": BWD_TOL, "forward_tolerance": FLASH_TOL})
+    if not within(fwd, FLASH_TOL):
+        raise AssertionError(f"flash forward disagrees with its plain version at {tuple(q.shape)}: {fwd}")
+    for name, st in stats.items():
+        if not within(st, BWD_TOL):
+            raise AssertionError(f"flash backward {name} disagrees with the plain gradient at {tuple(q.shape)}: {st}")
+    for kernel, names in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+        bwd_rows[kernel, t, segmented] = {
+            "max_abs_err": max(stats[n]["max_abs_err"] for n in names),
+            "rel_rms": max(stats[n]["rel_rms"] for n in names),
+            "max_abs_over_range": max(stats[n]["max_abs_err"] / stats[n]["range"] for n in names)}
+    return {"max_abs_err": fwd["max_abs_err"], "rel_rms": fwd["rel_rms"]}
 
 
 def flash_bound_ms(q, seg):
@@ -898,6 +959,232 @@ def load_bench_phase(torch, engines, new_launches):
              "idle_share": 1.0 - busy / wall if busy else "not measured"})
 
 
+def corpus_batch(rng, num_symbols, odim):
+    """4m-i's ragged batch of 4 at T1=64, T2=256: seeded ids and N(0, 1) mel
+    targets, zero past each length."""
+    tl, ml = np.array([64, 50, 37, 20], np.int32), np.array([256, 200, 150, 96], np.int32)
+    text = np.zeros((4, 64), np.int32)
+    for i, n in enumerate(tl):
+        text[i, :n] = rng.integers(1, num_symbols, n)
+    mel = rng.standard_normal((4, 256, odim)).astype(np.float32)
+    mel *= np.arange(256)[None, :, None] < ml[:, None, None]
+    return {"text": text, "text_lengths": tl, "mel": mel, "mel_lengths": ml}
+
+
+def epoch_split(step_times):
+    """Mean step wall and data wait of the first epoch and of the later ones."""
+    out = {}
+    for name, rows in (("epoch_1", [r for r in step_times if r["epoch"] == 0]),
+                       ("later_epochs", [r for r in step_times if r["epoch"] > 0])):
+        if rows:
+            out[name] = {"steps": len(rows), "wall_ms": 1e3 * float(np.mean([r["wall_s"] for r in rows])),
+                         "data_wait_ms": 1e3 * float(np.mean([r["data_wait_s"] for r in rows]))}
+    return out
+
+
+def corpus_training_phase(torch, voc, stages, new_launches, device="cuda"):
+    """4m: EFTS-CNN at `configs/lj_efts_cnn_char.yaml`'s widths trained on a
+    seeded synthetic corpus through the training CLI, then the inference
+    CLI on its checkpoint, and the EFTS-Transformer through the same CLI.
+    Returns the flash launches of the transformer's CLI run. `device` is the
+    card; "cpu" rehearses the phase's control flow at a small config."""
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from efficient_tts_tpu_torch import compat, init, native, pipeline
+    from efficient_tts_tpu_torch.bench import time_ms
+    from efficient_tts_tpu_torch.bench.corpus import make_corpus
+    from efficient_tts_tpu_torch.bin import inference, train
+    from efficient_tts_tpu_torch.data.collate import collate_text_mel
+    from efficient_tts_tpu_torch.data.dataset import TextMelDataset, load_filepaths_and_text
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.text import text_to_sequence
+    from efficient_tts_tpu_torch.train.efts_train_step import batch_to_device, make_train_step
+    from efficient_tts_tpu_torch.train.optim import optimizer_from_dict
+    from efficient_tts_tpu_torch.train.state import create_state, named_params
+    from efficient_tts_tpu_torch.utils.config import load_config, model_config_from_dict
+    from efficient_tts_tpu_torch.utils.masks import pad_list
+    from efficient_tts_tpu_torch.utils.precision import full_f32
+
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "efficient_tts_tpu_torch", "configs")
+    char_yaml = os.path.join(configs, "lj_efts_cnn_char.yaml")
+    config = load_config(char_yaml)
+    cfg = model_config_from_dict(config)
+
+    # i. the card against the CPU: the first step's loss and gradients
+    params = init.init_efts(4, cfg)
+    batch = corpus_batch(np.random.default_rng(4), cfg.num_symbols, cfg.odim)
+    grads, losses = {}, {}
+    dev = torch.device(device)
+    for dname in (device, "cpu"):
+        model = compat.efts_cnn_from_jax(params, cfg, device=dname, trainable=True)
+        b = batch_to_device(batch, torch.device(dname))
+        with full_f32():
+            out = model(b["text"], b["text_lengths"], b["mel"], b["mel_lengths"])
+            named = named_params(model)
+            g = torch.autograd.grad(out["loss"], list(named.values()))
+        grads[dname] = {n: x.detach().cpu() for n, x in zip(named, g)}
+        losses[dname] = float(out["loss"].detach())
+        del model, out, g, named
+    g_max = max(float(x.abs().max()) for x in grads["cpu"].values())
+    fails, worst = [], (0.0, "")
+    for name, ref in grads["cpu"].items():
+        err, own = float((grads[device][name] - ref).abs().max()), float(ref.abs().max())
+        if err > CNN_CPU_TOL["leaf_of_own_max"] * own + CNN_CPU_TOL["leaf_of_tree_max"] * g_max:
+            fails.append((name, err, own))
+        # the worst among leaves above rounding (the text key's bias has a
+        # true gradient of 0: the softmax is shift-invariant)
+        if own > 1e-3 * g_max:
+            worst = max(worst, (err / own, name))
+    log({"phase": "train_card_vs_cpu", "model": "efts_cnn", "widths": "lj_efts_cnn_char.yaml", "B": 4,
+         "T1": 64, "T2": 256, "loss": losses[device], "loss_cpu": losses["cpu"], "leaves": len(grads["cpu"]),
+         "worst_leaf_err_of_own_max": worst[0], "worst_leaf": worst[1], "failing_leaves": fails[:5],
+         "tolerance": CNN_CPU_TOL})
+    if fails or abs(losses[device] - losses["cpu"]) > CNN_CPU_TOL["loss_rel"] * abs(losses["cpu"]):
+        raise AssertionError(f"EFTS-CNN's first step on the card disagrees with the CPU: {fails[:5]}")
+    del grads
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ii. the corpus
+        t0 = time.perf_counter()
+        corpus = make_corpus(tmp, CORPUS_TRAIN, CORPUS_DEV, seed=0)
+        secs = corpus["seconds"]
+        log({"phase": "corpus", "train": CORPUS_TRAIN, "dev": CORPUS_DEV, "seconds_min": float(secs.min()),
+             "seconds_mean": float(secs.mean()), "seconds_max": float(secs.max()),
+             "hours": float(secs.sum() / 3600), "made_s": time.perf_counter() - t0, "mel_backend": native.backend()})
+        data_sets = ["--set", f"dataset_params.wav_path={corpus['wavs']}",
+                     "--set", f"dataset_params.mel_memory_cache_mb={CORPUS_MEL_CACHE_MB}"]
+
+        # iii. the training CLI: 12 steps (3 batches an epoch), then a resume to 14
+        cnn_out = os.path.join(tmp, "exp_cnn")
+        cpu = ["--use_cpu"] if dev.type == "cpu" else []
+        cnn_args = [*cpu, "--config", char_yaml, "--train_fid_scp", corpus["train"], "--dev_fid_scp", corpus["dev"],
+                    "--outdir", cnn_out, *data_sets, "--set", "save_interval_steps=6", "--set",
+                    "eval_interval_steps=6", "--set", "log_interval_steps=3"]
+        mrf.reset_launches()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train.main(cnn_args + ["--set", "train_max_steps=12"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        losses = [m["loss"] for m in trainer.metrics_log]
+        saved = sorted(n for n in os.listdir(cnn_out) if n.startswith("checkpoint-"))
+        log({"phase": "main_path", "what": "bin.train, EFTS-CNN", "steps": trainer.state["step"],
+             "batch_size": int(config["batch_size"]), "seconds": cli_s, "losses": losses,
+             "evals": list(trainer.eval_log), "checkpoints": saved, "mel_backend": native.backend(),
+             "step_times": epoch_split(trainer.step_times),
+             "step_wall_ms": [1e3 * r["wall_s"] for r in trainer.step_times],
+             "data_wait_ms": [1e3 * r["data_wait_s"] for r in trainer.step_times],
+             "launches": {"mrf": keyed(mrf.launches), "flash": keyed(fa.launches)}})
+        if (trainer.state["step"] != 12 or len(losses) != 12 or not all(math.isfinite(v) for v in losses)
+                or [e["step"] for e in trainer.eval_log] != [6, 12]
+                or not all(math.isfinite(v) for e in trainer.eval_log for v in e.values())
+                or saved != ["checkpoint-12steps", "checkpoint-6steps"]
+                or not os.path.exists(os.path.join(cnn_out, "config.yml")) or mrf.launches or fa.launches):
+            raise AssertionError(f"the EFTS-CNN training CLI: step {trainer.state['step']}, losses {losses}, "
+                                 f"evals {trainer.eval_log}, checkpoints {saved}")
+        split = epoch_split(trainer.step_times)
+        del trainer
+        resumed = train.main(cnn_args + ["--resume", os.path.join(cnn_out, "checkpoint-12steps"),
+                                         "--set", "train_max_steps=14"])
+        log({"phase": "main_path", "what": "bin.train --resume, EFTS-CNN", "steps": resumed.state["step"],
+             "trained_steps": [r["step"] for r in resumed.step_times],
+             "losses": [m["loss"] for m in resumed.metrics_log]})
+        if resumed.state["step"] != 14 or [r["step"] for r in resumed.step_times] != [13, 14]:
+            raise AssertionError(f"the resume trained steps {[r['step'] for r in resumed.step_times]}")
+        del resumed
+
+        # the inference CLI on the trained checkpoint: one batch of 8, f32,
+        # with the CLI's random V1 vocoder (the weights of `voc`)
+        ckpt = os.path.join(cnn_out, "checkpoint-14steps")
+        items = load_filepaths_and_text(corpus["dev"])[:8]
+        test_scp = os.path.join(tmp, "test.txt")
+        with open(test_scp, "w") as f:
+            f.writelines(f"{p}|{t}\n" for p, t in items)
+        mrf.reset_launches()
+        inference.main([*cpu, "--test_fid_scp", test_scp, "--checkpoint", ckpt, "--outdir", os.path.join(tmp, "wavs"),
+                        "--batch_size", "8"])
+        launches = new_launches["inference_cli_trained", "f32"] = dict(mrf.launches)
+        model, _ = inference.load_acoustic_model(ckpt, dev)
+        seqs = [np.asarray(text_to_sequence(t), np.int32) for _, t in items]
+        wav, wl = pipeline.synthesize(model, voc, pad_list(seqs), np.asarray([len(s) for s in seqs], np.int32),
+                                      device=dev)
+
+        lengths, steps = [], []
+        for i, (path, _) in enumerate(items):
+            sr, pcm = wavfile.read(os.path.join(tmp, "wavs", os.path.splitext(os.path.basename(path))[0] + "_gen.wav"))
+            want = (np.clip(wav[i, : int(wl[i])], -1.0, 1.0) * 32767).astype(np.int16)
+            if sr != voc.cfg.sampling_rate or pcm.shape != want.shape:
+                raise AssertionError(f"the inference CLI wrote {pcm.shape} at {sr} Hz, expected {want.shape}")
+            lengths.append(int(pcm.shape[0]))
+            steps.append(int(np.abs(pcm.astype(np.int32) - want).max()))
+        log({"phase": "main_path", "what": "bin.inference on the trained EFTS-CNN", "checkpoint": "checkpoint-14steps",
+             "utterances": len(items), "wav_samples": lengths, "finite": bool(np.isfinite(wav).all()),
+             "max_pcm_steps_vs_pipeline": max(steps), "mrf_launches": keyed(launches)})
+        if max(steps) != 0 or not np.isfinite(wav).all() or launches != stage_launches(stages, "f32", 1):
+            raise AssertionError(f"inference from the trained checkpoint: PCM steps {steps}, launches {launches}")
+        del model, wav
+
+        # iv. the EFTS-Transformer through the same CLI: 4 steps at B=64
+        tr_overrides = ["model_params.dropout_rate=0.0", "text_bucket=128", "mel_bucket=128",
+                        "dataset_params.use_phnseq=false", "model_params.num_symbols=148"]
+        tr_args = [*cpu, "--config", os.path.join(configs, "lj_efts_transformer_phnseq.yaml"), "--train_fid_scp",
+                   corpus["train"], "--outdir", os.path.join(tmp, "exp_tr"), *data_sets,
+                   *[a for o in tr_overrides for a in ("--set", o)], "--set", "train_max_steps=4",
+                   "--set", "save_interval_steps=4", "--set", "log_interval_steps=1"]
+        mrf.reset_launches()
+        fa.reset_launches()
+        tr = train.main(tr_args)
+        torch.cuda.synchronize()
+        tr_flash = dict(fa.launches)
+        per_kernel = {k: sum(n for (kern, _, _), n in tr_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
+        tr_losses = [m["loss"] for m in tr.metrics_log]
+        log({"phase": "main_path", "what": "bin.train, EFTS-Transformer", "overrides": tr_overrides,
+             "steps": tr.state["step"], "losses": tr_losses,
+             "flash_launches": keyed(tr_flash), "flash_launches_per_step": {k: n / 4 for k, n in per_kernel.items()},
+             "step_times": epoch_split(tr.step_times)})
+        # every attention call of a step on the kernels: 4 text-encoder, 2
+        # mel-encoder and 4 decoder calls at the yaml's depth
+        calls = tr.cfg.n_text_encoder_layer + tr.cfg.n_mel_encoder_layer + tr.cfg.n_decoder_layer
+        if (tr.state["step"] != 4 or not all(math.isfinite(v) for v in tr_losses)
+                or per_kernel != {k: 4 * calls for k in per_kernel} or mrf.launches
+                or any(not seg for (_, _, seg) in tr_flash)):
+            raise AssertionError(f"the EFTS-Transformer CLI: losses {tr_losses}, flash launches {tr_flash}")
+        del tr
+
+        # v. the EFTS-CNN step at B=128 on one collated batch of the corpus:
+        # the middle of its three length-sorted batches (the yaml's buckets)
+        ds = TextMelDataset(corpus["train"], wav_path=corpus["wavs"])
+        bs = int(config["batch_size"])
+        middle = np.argsort([ds.approx_length(i) for i in range(len(ds))], kind="stable")[bs:2 * bs]
+        t0 = time.perf_counter()
+        items = [ds[int(i)] for i in middle]
+        extract_ms = 1e3 * (time.perf_counter() - t0) / len(items)
+        fixed = batch_to_device(collate_text_mel(items, int(config["text_bucket"]), int(config["mel_bucket"])), dev)
+        del items
+    model = compat.efts_cnn_from_jax(init.init_efts(0, cfg), cfg, device=dev, trainable=True)
+    tx = optimizer_from_dict(config)
+    state = create_state(model, tx)
+    step = make_train_step(cfg, tx, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time_ms(lambda: step(state, fixed), iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(torch, lambda: step(state, fixed))
+    summary = profile_summary(prof, t_step["median"], ()) if prof else {"device_busy_ms": "not measured"}
+    t1, t2 = int(fixed["text"].shape[1]), int(fixed["mel"].shape[1])
+    log({"phase": "timing", "what": "train_step", "model": "efts_cnn", "B": int(fixed["text"].shape[0]),
+         "T1": t1, "T2": t2, "dtype": "f32", "ms": t_step["median"], "ms_p25": t_step["p25"],
+         "ms_p75": t_step["p75"], "n": t_step["n"], "max_memory_allocated_gb": peak / 2**30,
+         "params_m": sum(p.numel() for p in named_params(model).values()) / 1e6,
+         "mel_extraction_ms_per_utterance": extract_ms, "mel_backend": native.backend(), "cli": split,
+         **summary})
+    del state, step, model, fixed
+    return tr_flash
+
+
 def build_tree(path):
     """Compile `path`'s flash_attention.cu, mrf_stage_int8.cu and
     probe_matmul.cu (their headers beside them) with the port's nvcc flags
@@ -1150,26 +1437,7 @@ def main(argv=None) -> int:
     bwd_shapes = ((TRAIN_T2, False), (TRAIN_T2, True), (T1_TR, True))
     bwd_rows = {}
     for t, segmented in bwd_shapes:
-        q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
-        fa.reset_launches()
-        got = flash_grads(torch, fa.flash_attention, q, k, v, do, seg, 96**-0.5)
-        torch.cuda.synchronize()
-        if fa.launches != {(kernel, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}:
-            raise AssertionError(f"one backward launched {fa.launches}")
-        ref = flash_grads(torch, fa.flash_attention_reference, q, k, v, do, seg, 96**-0.5)
-        stats = {name: err_stats(g_, r_) for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref)}
-        log({"phase": "kernel_vs_plain", "kernel": "flash_attention_backward", "shape": list(q.shape),
-             "segment_ids": segmented, **stats, "tolerance": BWD_TOL})
-        for name, st in stats.items():
-            if not within(st, BWD_TOL):
-                raise AssertionError(f"flash backward {name} disagrees with the plain gradient at "
-                                     f"{tuple(q.shape)}: {st}")
-        for kernel, names in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
-            bwd_rows[kernel, t, segmented] = {
-                "max_abs_err": max(stats[n]["max_abs_err"] for n in names),
-                "rel_rms": max(stats[n]["rel_rms"] for n in names),
-                "max_abs_over_range": max(stats[n]["max_abs_err"] / stats[n]["range"] for n in names)}
-        del q, k, v, do, seg, got, ref
+        check_flash_backward(torch, fa, t, segmented, dev, bwd_rows)
     # the f32 MRF kernel (K3's f32 mode) at the V1 stage shapes
     f32_rows = {}
     for c, t in stages:
@@ -1636,6 +1904,15 @@ def main(argv=None) -> int:
     load_bench_phase(torch, engines, new_launches)
     del engines
 
+    # 4m. EFTS-CNN training on a synthetic corpus through the training CLI,
+    # inference from its checkpoint, and the EFTS-Transformer through the CLI
+    train_cli_flash = corpus_training_phase(torch, voc, stages, new_launches)
+    # the flash kernels at the CLI's other lengths, held as phase 3 holds
+    # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
+    cli_shapes = sorted({(t, seg) for (_, t, seg) in train_cli_flash} - set(bwd_shapes))
+    for t, segmented in cli_shapes:
+        flash_rows[f"train_cli_t{t}"] = check_flash_backward(torch, fa, t, segmented, dev, bwd_rows)
+
     # 5. timing
     def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16):
         """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
@@ -1800,7 +2077,8 @@ def main(argv=None) -> int:
          "library": probe["times"]["torch bf16"]["median"] / probe["times"]["torch int8"]["median"],
          "peaks": 1979 / 989})
 
-    for name, fb, t, segmented in FLASH_FWD_SHAPES:
+    cli_fwd_shapes = tuple((f"train_cli_t{t}", TRAIN_B, t, segmented) for t, segmented in cli_shapes)
+    for name, fb, t, segmented in FLASH_FWD_SHAPES + cli_fwd_shapes:
         q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented, b=fb)
         scale = 96**-0.5
         mask = None if seg is None else (seg.q[:, None, :, None] == seg.kv[:, None, None, :])
@@ -1824,11 +2102,14 @@ def main(argv=None) -> int:
         k_host_us = host_us(torch, calls["kernel"])
         ms = {name_: dev_ms[name_] if dev_ms[name_] is not None else call_ms[name_]["median"] for name_ in dev_ms}
         bound, bound_by, flops = flash_bound_ms(q, seg)
-        path = "efts_transformer_training" if training else "efts_transformer"
-        n_launch = train_launches.get(("fwd", t, True), 0) if training else tr_flash.get(segmented, 0)
-        by_path = {path: n_launch}
         if not training:
-            by_path["serve_engine_transformer"] = serve_flash.get(segmented, 0)
+            by_path = {"efts_transformer": tr_flash.get(segmented, 0),
+                       "serve_engine_transformer": serve_flash.get(segmented, 0)}
+        else:
+            by_path = {"efts_transformer_training": train_launches.get(("fwd", t, True), 0),
+                       "train_cli_transformer": train_cli_flash.get(("fwd", t, True), 0)}
+        # a length only the CLI's corpus gives counts the CLI's launches
+        n_launch = by_path["train_cli_transformer" if name.startswith("train_cli") else next(iter(by_path))]
         row = {
             "name": "flash_attention_fwd_" + name, "route": "cuda",
             "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
@@ -1856,7 +2137,7 @@ def main(argv=None) -> int:
     # device time of each kernel, of its plain version from the same
     # residuals, and of SDPA's backward (dq, dk and dv in one call)
     pallas_lines = {"dkv": 1121, "dq": 1456}
-    for t, segmented in ((TRAIN_T2, True), (T1_TR, True)):
+    for t, segmented in ((TRAIN_T2, True), (T1_TR, True), *cli_shapes):
         q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
         scale = 96**-0.5
         o, m, l = fa._forward_kernel(q, k, v, seg, scale, residuals=True)
@@ -1892,13 +2173,17 @@ def main(argv=None) -> int:
             p_ms = p_dev if p_dev is not None else time_ms(plain)["median"]
             bound, bound_by, flops = flash_bwd_bound_ms(q, seg, part)
             k_ms = k_dev
+            by_path = {"efts_transformer_training": train_launches.get((part, t, segmented), 0),
+                       "train_cli_transformer": train_cli_flash.get((part, t, segmented), 0)}
+            cli_only = (t, segmented) in cli_shapes
             row = {
-                "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR else f"t{t}"), "route": "cuda",
-                "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
+                "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR
+                                                      else f"train_cli_t{t}" if cli_only else f"t{t}"),
+                "route": "cuda", "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
                 "replaces": "efficient_tts_tpu/nn/attention.py:56",
                 "pallas_call": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{pallas_lines[part]} (jax 0.9.0)",
-                "launches": train_launches.get((part, t, segmented), 0),
-                "launches_by_path": {"efts_transformer_training": train_launches.get((part, t, segmented), 0)},
+                "launches": by_path["train_cli_transformer" if cli_only else "efts_transformer_training"],
+                "launches_by_path": by_path,
                 **bwd_rows[part, t, segmented], "tolerance": BWD_TOL,
                 "precision": "tf32 operands, f32 softmax, di and sums",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,

@@ -4,7 +4,8 @@
         --checkpoint exp/checkpoint-100000steps --outdir out [--use_cpu]
 
 Reads the `config.yml` beside the checkpoint, rebuilds the acoustic model
-and loads the checkpoint written by `train/checkpoint.py:save_checkpoint`,
+and loads the checkpoint written by `train/checkpoint.py:save_checkpoint`
+(an EFTS-CNN trainer's checkpoint has its weight norm folded here),
 loads the vocoder (a reference HiFi-GAN generator file, or random weights
 with a warning), synthesizes the filelist's texts in batches through
 `pipeline.synthesize` in f32 and writes PCM_16 wavs. Runs on the card unless
@@ -51,10 +52,12 @@ def get_parser():
 
 def load_acoustic_model(checkpoint: str, device):
     """(model on `device`, config dict) from a `train/checkpoint.py` file and
-    the `config.yml` beside it. An EFTS-Transformer checkpoint written by the
-    trainer also holds the training-only modules; they are loaded and unused."""
+    the `config.yml` beside it. A checkpoint that the trainer wrote also holds
+    the training-only modules (and, for EFTS-CNN, weight norm as {v, g}):
+    the model is built to take them, and an EFTS-CNN's weight norm is folded
+    for inference as the weight bridge folds it."""
     from efficient_tts_tpu_torch.models import model_class_for
-    from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer
+    from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN
     from efficient_tts_tpu_torch.train.checkpoint import load_checkpoint
     from efficient_tts_tpu_torch.utils.config import load_config, model_config_from_dict
     from efficient_tts_tpu_torch.utils.device import resolve_device
@@ -62,14 +65,11 @@ def load_acoustic_model(checkpoint: str, device):
     dev = resolve_device(device)
     config = load_config(os.path.join(os.path.dirname(os.path.abspath(checkpoint)), "config.yml"))
     cfg = model_config_from_dict(config)
-    cls = model_class_for(cfg)
-    if cls is EftsTransformer:
-        keys = torch.load(os.path.abspath(checkpoint), map_location="cpu", weights_only=True)["params"]
-        model = cls(cfg, training_modules=any(k.startswith("mel_encoder.") for k in keys))
-    else:
-        model = cls(cfg)
-    model = model.to(dev)
+    keys = torch.load(os.path.abspath(checkpoint), map_location="cpu", weights_only=True, mmap=True)["params"]
+    model = model_class_for(cfg)(cfg, training_modules=any(k.startswith("mel_encoder.") for k in keys)).to(dev)
     load_checkpoint(checkpoint, {"params": model}, load_only_params=True)
+    if isinstance(model, EftsCNN):
+        model.fold_weight_norm()
     model.requires_grad_(False)
     return model.eval(), config
 

@@ -8,8 +8,10 @@ once here (eps 0). Layouts: linear [in, out] -> [out, in]; conv WIO
 [k, in, out] -> [out, in, k]; transposed conv WIO -> [in, out, k]; MRF
 stage convs -> the kernel's [k, out, in], each stage's 18 laid out once.
 An inference model ignores the parameters that only the training forward
-uses; `efts_transformer_from_jax(..., trainable=True)` loads them too and
-makes every parameter trainable, and `efts_transformer_to_jax` maps a
+uses; `efts_cnn_from_jax` and `efts_transformer_from_jax` with
+`trainable=True` load them too and make every parameter trainable (the
+EFTS-CNN keeping weight norm unfolded, {v, g} of layout [out, in, k] and
+[out, 1, 1]), and `efts_cnn_to_jax` / `efts_transformer_to_jax` map a
 model's parameters (or their gradients) back onto the JAX tree's keys and
 layouts, so the two can be compared leaf by leaf.
 
@@ -28,7 +30,7 @@ import torch
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer, EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
-from efficient_tts_tpu_torch.nn.layers import fold_weight_norm
+from efficient_tts_tpu_torch.nn.layers import WNConv1d, fold_weight_norm
 from efficient_tts_tpu_torch.utils.device import resolve_device
 
 
@@ -67,24 +69,8 @@ def _load_duration_predictor(mod, p):
     _load_linear(mod.out, p["out"])
 
 
-@torch.no_grad()
-def efts_cnn_from_jax(params: dict, cfg: EftsCNNConfig, device="cuda") -> EftsCNN:
-    dev = resolve_device(device)
-    p = fold_weight_norm(params)
-    model = EftsCNN(cfg)
-    _set(model.text_embedding, p["text_embedding"]["table"])
-    for block in ("text_encoder", "decoder"):
-        for mod, lp in zip(getattr(model, block).layers, p[block]["layers"], strict=True):
-            _load_conv(mod, lp)
-    value = p["text_key"] if cfg.share_text_encoder_key_value else p["text_value"]
-    _load_linear(model.text_value, value)
-    _load_linear(model.mel_out, p["mel_out"])
-    _load_duration_predictor(model.duration_predictor, p["duration_predictor"])
-    return model.to(dev).eval()
-
-
-# Transformer parameters as (path in the JAX tree, port parameter, layout),
-# read one way by the loader and the other way by `efts_transformer_to_jax`.
+# Trainable parameters as (path in the JAX tree, port parameter, layout),
+# read one way by the loaders and the other way by `efts_*_to_jax`.
 # Layouts: "linear" [in, out] <-> [out, in], "conv" [k, in, out] <-> [out,
 # in, k] (both self-inverse transposes), "same" as it is.
 _TO_PORT = {"linear": lambda a: a.T, "conv": lambda a: np.transpose(a, (2, 1, 0)), "same": lambda a: a}
@@ -112,6 +98,41 @@ def _entries_block(path, block):
     yield from _entries_norm(path + ("final_norm",), block.final_norm)
 
 
+def _entries_res_block(path, block):
+    for i, conv in enumerate(block.layers):
+        lp = path + ("layers", i)
+        if isinstance(conv, WNConv1d):
+            yield lp + ("v",), conv.v, "conv"
+            yield lp + ("g",), conv.g, "conv"  # [1, 1, out] <-> [out, 1, 1]
+            yield lp + ("b",), conv.bias, "same"
+        else:
+            yield from _entries_linear(lp, conv, "conv")
+
+
+def _entries_duration_predictor(mod):
+    for i, (conv, norm) in enumerate(zip(mod.convs, mod.norms)):
+        yield from _entries_linear(("duration_predictor", "convs", i), conv, "conv")
+        yield from _entries_norm(("duration_predictor", "norms", i), norm)
+    yield from _entries_linear(("duration_predictor", "out"), mod.out)
+
+
+def _entries_cnn(model: EftsCNN):
+    """A training model's parameters (a shared key and value once, as the key)."""
+    cfg = model.cfg
+    yield ("text_embedding", "table"), model.text_embedding, "same"
+    yield from _entries_res_block(("text_encoder",), model.text_encoder)
+    yield from _entries_linear(("text_key",), model.text_key)
+    if not cfg.share_text_encoder_key_value:
+        yield from _entries_linear(("text_value",), model.text_value)
+    yield from _entries_linear(("mel_prenet",), model.mel_prenet)
+    yield from _entries_res_block(("mel_encoder",), model.mel_encoder)
+    if cfg.use_mel_query_fc:
+        yield from _entries_linear(("mel_query_fc",), model.mel_query_fc)
+    yield from _entries_res_block(("decoder",), model.decoder)
+    yield from _entries_linear(("mel_out",), model.mel_out)
+    yield from _entries_duration_predictor(model.duration_predictor)
+
+
 def _entries_transformer(model: EftsTransformer):
     yield ("text_embedding", "table"), model.text_embedding, "same"
     yield ("pe_scale",), model.pe_scale, "same"
@@ -123,11 +144,7 @@ def _entries_transformer(model: EftsTransformer):
         yield from _entries_block(("mel_encoder",), model.mel_encoder)
     yield from _entries_block(("decoder",), model.decoder)
     yield from _entries_linear(("mel_out",), model.mel_out)
-    dp = model.duration_predictor
-    for i, (conv, norm) in enumerate(zip(dp.convs, dp.norms)):
-        yield from _entries_linear(("duration_predictor", "convs", i), conv, "conv")
-        yield from _entries_norm(("duration_predictor", "norms", i), norm)
-    yield from _entries_linear(("duration_predictor", "out"), dp.out)
+    yield from _entries_duration_predictor(model.duration_predictor)
 
 
 def _load_entries(entries, tree):
@@ -159,6 +176,40 @@ def _put(tree, path, value):
 
 
 @torch.no_grad()
+def efts_cnn_from_jax(params: dict, cfg: EftsCNNConfig, device="cuda", trainable: bool = False) -> EftsCNN:
+    """An inference model folds weight norm here (f64 on the host) and
+    ignores the text key, mel prenet and mel encoder (training only; with a
+    shared key and value the key's weights become the value's);
+    `trainable=True` keeps {v, g}, loads the training modules and makes
+    every parameter require a gradient."""
+    dev = resolve_device(device)
+    if trainable:
+        model = EftsCNN(cfg, training_modules=True)
+        _load_entries(_entries_cnn(model), params)
+        model.requires_grad_(True)
+        return model.to(dev).train()
+    p = fold_weight_norm(params)
+    model = EftsCNN(cfg)
+    _set(model.text_embedding, p["text_embedding"]["table"])
+    for block in ("text_encoder", "decoder"):
+        for mod, lp in zip(getattr(model, block).layers, p[block]["layers"], strict=True):
+            _load_conv(mod, lp)
+    value = p["text_key"] if cfg.share_text_encoder_key_value else p["text_value"]
+    _load_linear(model.text_value, value)
+    _load_linear(model.mel_out, p["mel_out"])
+    _load_duration_predictor(model.duration_predictor, p["duration_predictor"])
+    return model.to(dev).eval()
+
+
+@torch.no_grad()
+def efts_cnn_to_jax(model: EftsCNN, grads: bool = False) -> dict:
+    """A training model's parameters (or, with `grads`, their `.grad`, zeros
+    where there is none) as a numpy tree with the JAX package's keys and
+    layouts, weight norm as {v, g, b}."""
+    return _tree_from_entries(_entries_cnn(model), grads)
+
+
+@torch.no_grad()
 def efts_transformer_from_jax(params: dict, cfg: EftsTransformerConfig, device="cuda",
                               trainable: bool = False) -> EftsTransformer:
     """An inference model ignores the text key, mel prenet and mel encoder
@@ -175,8 +226,12 @@ def efts_transformer_from_jax(params: dict, cfg: EftsTransformerConfig, device="
 def efts_transformer_to_jax(model: EftsTransformer, grads: bool = False) -> dict:
     """The model's parameters (or, with `grads`, their `.grad`, zeros where
     there is none) as a numpy tree with the JAX package's keys and layouts."""
+    return _tree_from_entries(_entries_transformer(model), grads)
+
+
+def _tree_from_entries(entries, grads: bool) -> dict:
     tree: dict = {}
-    for path, param, layout in _entries_transformer(model):
+    for path, param, layout in entries:
         t = param.grad if grads else param
         value = np.zeros(tuple(param.shape), np.float32) if t is None else t.detach().float().cpu().numpy()
         _put(tree, path, np.array(_TO_PORT[layout](value), order="C"))

@@ -6,7 +6,7 @@ Both models offer `infer_durations` and `infer_decode` with the same
 signatures, which is all `pipeline.py` calls. A model class whose `TRAINS`
 is true has a training forward, `model(text, text_lengths, mel,
 mel_lengths, gen=..., deterministic=...)`, which is all
-`train/efts_train_step.py` calls: the EFTS-Transformer so far.
+`train/efts_train_step.py` calls: both models.
 """
 
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig

@@ -1,14 +1,19 @@
-"""EFTS-CNN inference: text ids -> aligned positions -> mel.
+"""EFTS-CNN: text ids -> aligned positions -> mel, inference and training.
 
 Counterpart of `efficient_tts_tpu/models/efficient_tts.py`
-(`EftsCNNConfig`, `_encode_text`, `infer_durations`, `infer_decode`).
-Inference only: the mel encoder, mel prenet and text key, which only the
-training forward uses, are not held.
+(`EftsCNNConfig`, `_encode_text`, `forward`, `infer_durations`,
+`infer_decode`). An inference model holds plain convs, weight norm folded
+by the bridge, and not the mel prenet, mel encoder and text key, which
+only the training forward uses. A model built with `training_modules=True`
+holds them too, and keeps each res-conv weight norm as trainable {v, g}
+(`nn/layers.py:WNConv1d`) when `cfg.use_weight_norm`; `fold_weight_norm`
+makes its convs plain for inference.
 
-Dtypes follow the JAX package: stage 1 (`infer_durations`) runs at
-`cfg.compute_dtype` (None = f32) with an f32 duration cumsum; the decode
-takes its own `compute_dtype`; the alignment is f32 throughout and the mel
-output is f32.
+Dtypes follow the JAX package: the conv stacks and linears run at
+`cfg.compute_dtype` (None = f32), the IMV alignment chain is f32
+throughout, the expansion α'ᵀV sums in f32, the mel prediction and the
+losses are f32, and the duration cumsum of inference is f32; the decode
+takes its own `compute_dtype`.
 """
 
 from __future__ import annotations
@@ -19,10 +24,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from efficient_tts_tpu_torch.losses.fastspeech import fastspeech_loss
 from efficient_tts_tpu_torch.nn.blocks import ResConvBlock
 from efficient_tts_tpu_torch.nn.duration_predictor import DurationPredictor
-from efficient_tts_tpu_torch.nn.layers import Linear, frozen_param
-from efficient_tts_tpu_torch.ops.alignment import alignment_from_positions
+from efficient_tts_tpu_torch.nn.layers import Linear, dropout, frozen_param, leaky_relu, split_generator
+from efficient_tts_tpu_torch.ops.alignment import (
+    aligned_positions,
+    alignment_from_positions,
+    imv_from_alpha,
+    index_vector,
+    scaled_dot_attention,
+)
 from efficient_tts_tpu_torch.utils.masks import sequence_mask
 
 
@@ -63,27 +75,109 @@ def as_dtype(dtype) -> torch.dtype | None:
 
 
 class EftsCNN(nn.Module):
-    TRAINS = False  # its training forward (trainable weight norm) is not ported yet
+    TRAINS = True
 
-    def __init__(self, cfg: EftsCNNConfig):
+    def __init__(self, cfg: EftsCNNConfig, training_modules: bool = False):
         super().__init__()
         self.cfg = cfg
         c = cfg.n_channels
+
+        def block(n_layers):
+            return ResConvBlock(n_layers, c, cfg.k_size, cfg.leaky_slope,
+                                weight_norm=training_modules and cfg.use_weight_norm)
+
         self.text_embedding = frozen_param((cfg.num_symbols, cfg.symbol_embedding_dim))
-        self.text_encoder = ResConvBlock(cfg.n_text_encoder_layer, c, cfg.k_size, cfg.leaky_slope)
-        self.text_value = Linear(c, c)
-        self.decoder = ResConvBlock(cfg.n_decoder_layer, c, cfg.k_size, cfg.leaky_slope)
+        self.text_encoder = block(cfg.n_text_encoder_layer)
+        self.training_modules = training_modules
+        if training_modules:
+            self.text_key = Linear(c, c)
+            self.mel_prenet = Linear(cfg.odim, c)
+            self.mel_encoder = block(cfg.n_mel_encoder_layer)
+            if cfg.use_mel_query_fc:
+                self.mel_query_fc = Linear(c, c)
+        # with a shared key and value, text_value is the key's module (JAX:
+        # value = key); an inference model gets the key's weights there
+        self.text_value = self.text_key if training_modules and cfg.share_text_encoder_key_value else Linear(c, c)
+        self.decoder = block(cfg.n_decoder_layer)
         self.mel_out = Linear(c, cfg.odim)
         self.duration_predictor = DurationPredictor(c, cfg.n_duration_layer)
 
-    def encode_text(self, text, text_mask):
-        """text ids [B, T1] -> masked text value [B, T1, C]."""
+    def fold_weight_norm(self) -> "EftsCNN":
+        """Make the model an inference model in place: every weight-normed conv
+        plain (the weights of the inference bridge, bit for bit) and every
+        parameter frozen. Returns the model."""
+        for name in ("text_encoder", "mel_encoder", "decoder"):
+            if hasattr(self, name):
+                getattr(self, name).fold()
+        return self.requires_grad_(False).eval()
+
+    def _embed(self, text):
         h = F.embedding(text, self.text_embedding)
         cdt = as_dtype(self.cfg.compute_dtype)
-        if cdt is not None:
-            h = h.to(cdt)
-        value = self.text_value(self.text_encoder(h))
+        return h.to(cdt) if cdt is not None else h
+
+    def encode_text(self, text, text_mask):
+        """text ids [B, T1] -> masked text value [B, T1, C]."""
+        value = self.text_value(self.text_encoder(self._embed(text)))
         return value * text_mask.to(value.dtype)[:, :, None]
+
+    def forward(self, text, text_lengths, speech, speech_lengths, gen=None, deterministic: bool = True) -> dict:
+        """Training forward: text [B, T1] ids, speech [B, T2, odim] target
+        mel, lengths [B] -> {loss, mel_loss, duration_loss, imv [B, T2],
+        reconst_alpha [B, T1, T2], mel_pred [B, T2, odim], aligned_e [B, T1]}.
+        With `deterministic=False` and a dropout rate, `gen` (a CPU
+        generator) drives every dropout mask."""
+        cfg = self.cfg
+        if not self.training_modules:
+            raise RuntimeError("this EftsCNN was built for inference; build it with "
+                               "training_modules=True (compat: trainable=True) to train it")
+        t1, t2 = text.shape[1], speech.shape[1]
+        text_mask = sequence_mask(text_lengths, t1)
+        mel_mask = sequence_mask(speech_lengths, t2)
+        text_mel_maskf = (text_mask[:, :, None] & mel_mask[:, None, :]).float()
+        train = not deterministic and cfg.dropout_rate > 0
+        r_text, r_mel, r_dec, r_pre, r_dur = split_generator(gen, 5) if train else (None,) * 5
+        rate = cfg.dropout_rate
+
+        h = self.text_encoder(self._embed(text), rate, r_text, deterministic)
+        maskf = text_mask.to(h.dtype)[:, :, None]
+        text_key = self.text_key(h)
+        text_value = text_key if cfg.share_text_encoder_key_value else self.text_value(h)
+        text_key, text_value = text_key * maskf, text_value * maskf
+
+        cdt = as_dtype(cfg.compute_dtype)
+        speech_c = speech.to(cdt) if cdt is not None else speech
+        mel_h = dropout(leaky_relu(self.mel_prenet(speech_c), cfg.leaky_slope), rate, r_pre, deterministic)
+        mel_h = self.mel_encoder(mel_h, rate, r_mel, deterministic)
+        if cfg.use_mel_query_fc:
+            mel_h = self.mel_query_fc(mel_h)
+
+        # the soft alignment and the IMV chain, f32
+        alpha = scaled_dot_attention(mel_h, text_key, text_mask) * text_mel_maskf
+        p = index_vector(text_mask)
+        imv = imv_from_alpha(alpha, p, mel_mask, text_lengths)
+        e = aligned_positions(imv, p, mel_mask, text_mask, sigma_e=cfg.sigma_e)
+        reconst_alpha = alignment_from_positions(e, t2, sigma=cfg.sigma, mel_mask=mel_mask,
+                                                 text_mask=text_mask) * text_mel_maskf
+
+        # the text values expanded to mel frames: operands in the compute dtype, f32 sums
+        alpha_c = reconst_alpha.to(cdt) if cdt is not None else reconst_alpha
+        expanded = torch.einsum("bst,bsc->btc", alpha_c.float(), text_value.float())
+        if cdt is not None:
+            expanded = expanded.to(cdt)
+        expanded = expanded * mel_mask.to(expanded.dtype)[:, :, None]
+        dec = self.decoder(expanded, rate, r_dec, deterministic)
+        mel_pred = self.mel_out(dec).float() * mel_mask.float()[:, :, None]
+
+        # the duration target: log(delta e + offset) of the detached e
+        e_sg = e.detach()
+        delta_e = torch.cat([e_sg[:, :1], e_sg[:, 1:] - e_sg[:, :-1]], dim=1)
+        log_delta_e = torch.where(text_mask, torch.log(delta_e + cfg.duration_offset), torch.zeros_like(delta_e))
+        dur_pred = self.duration_predictor(text_value, ~text_mask, rate, r_dur, deterministic).float()
+        mel_loss, dur_loss = fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
+                                             use_masking=cfg.use_masking, loss_normalize=cfg.loss_normalize)
+        return {"loss": mel_loss + dur_loss, "mel_loss": mel_loss, "duration_loss": dur_loss, "imv": imv,
+                "reconst_alpha": reconst_alpha, "mel_pred": mel_pred, "aligned_e": e_sg}
 
     def infer_durations(self, text, text_lengths):
         """Stage 1: (e [B, T1] f32 aligned positions, text value, text mask)."""

@@ -9,6 +9,8 @@ cast to that dtype.
 
 Parameters are built frozen (`requires_grad=False`); the weight bridge
 makes a model trainable on request (`compat.py`, `trainable=True`).
+`WNConv1d` keeps weight norm trainable, as {v, g}, folded into the conv
+weight on each forward; `fold` gives the plain `Conv1d` of inference.
 Dropout takes an explicit generator, as JAX's takes a key: a CPU
 `torch.Generator` is the host-side key, `split_generator` its
 `jax.random.split`, and each dropout call seeds a generator on the
@@ -110,6 +112,39 @@ class Conv1d(nn.Module):
 
     def forward(self, x):
         return conv1d(x, self.weight, self.bias, self.dilation)
+
+
+class WNConv1d(nn.Module):
+    """A weight-normed conv: v [out, in, k], g [out, 1, 1] and the bias; the
+    forward convolves with w = g * v / ||v||, the norm over the axes where g
+    has size 1 (in and k), eps 0 (`efficient_tts_tpu/nn/layers.py:
+    weight_norm_kernel`)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, dilation: int = 1):
+        super().__init__()
+        self.v = frozen_param((out_ch, in_ch, kernel_size))
+        self.g = frozen_param((out_ch, 1, 1))
+        self.bias = frozen_param((out_ch,))
+        self.dilation = dilation
+
+    def weight(self) -> torch.Tensor:
+        axes = tuple(i for i in range(self.v.dim()) if self.g.shape[i] == 1)
+        return self.g * self.v / torch.sqrt(torch.sum(self.v * self.v, dim=axes, keepdim=True))
+
+    def forward(self, x):
+        return conv1d(x, self.weight(), self.bias, self.dilation)
+
+    @torch.no_grad()
+    def fold(self) -> Conv1d:
+        """The plain conv of the same weights, folded as `fold_weight_norm`
+        folds the JAX tree (f64 on the host), so a folded model equals one
+        loaded folded bit for bit."""
+        out_ch, in_ch, k = self.v.shape
+        conv = Conv1d(in_ch, out_ch, k, self.dilation).to(self.v.device)
+        w = weight_norm_kernel(self.v.cpu().numpy(), self.g.cpu().numpy())
+        conv.weight.copy_(torch.from_numpy(w))
+        conv.bias.copy_(self.bias)
+        return conv
 
 
 class ConvTranspose1d(nn.Module):

@@ -33,14 +33,16 @@ from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_de
 from efficient_tts_tpu_torch.utils.precision import full_f32
 
 METRIC_KEYS = ("loss", "mel_loss", "duration_loss")
-_BATCH_DTYPES = {"text": torch.long, "text_lengths": torch.long, "mel": torch.float32, "mel_lengths": torch.long}
+BATCH_DTYPES = {"text": torch.long, "text_lengths": torch.long, "mel": torch.float32, "mel_lengths": torch.long}
 
 
 def batch_to_device(batch: dict, device) -> dict:
     """text [B, T1] ids, text_lengths [B], mel [B, T2, odim], mel_lengths [B]
-    (numpy or torch) as tensors on `device`."""
+    (numpy or torch) as tensors on `device`. A tensor already there in its
+    dtype (`data/loader.py:device_prefetch` with `BATCH_DTYPES`) is taken as
+    it is, not copied."""
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(device=device, dtype=dt)
-            for k, dt in _BATCH_DTYPES.items() for v in (batch[k],)}
+            for k, dt in BATCH_DTYPES.items() for v in (batch[k],)}
 
 
 def _checked_model(model, model_cls, dev):

@@ -9,7 +9,15 @@ eval and interval saves:
   * a non-finite loss saves the state as `diverged-state-{step}` (invisible
     to `latest_checkpoint`) and raises FloatingPointError; the metrics are
     read one step late, so that state is one or two updates past the step;
-  * SIGTERM and Ctrl-C save a checkpoint before the exception leaves `run`.
+  * SIGTERM and Ctrl-C save a checkpoint before the exception leaves `run`;
+  * `step_times` keeps, for each step, its epoch, its wall time from the
+    request for the batch to the readback of the step before (evals and
+    saves left out) and the part of it spent waiting on the batch iterator;
+    the log line gives the interval's mean wait. `metrics_log` keeps each
+    step's losses as read back, `eval_log` each eval's means. The three
+    keep the last `HISTORY` entries only.
+Batches may come as numpy arrays or as tensors already on the device
+(`data/loader.py:device_prefetch`), which the step takes without a copy.
 The JAX trainer's eval plots (`_plot_diagnostics`) are not ported: they
 need `utils/plotting`. Entry points run on `device` ("cuda" by default)
 and raise without a card unless the caller passes device="cpu".
@@ -21,7 +29,7 @@ import logging
 import math
 import os
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
@@ -36,6 +44,8 @@ log = logging.getLogger(__name__)
 
 
 class EftsTrainer:
+    HISTORY = 1000  # entries kept in step_times, metrics_log and eval_log
+
     def __init__(self, cfg, tx, train_iter, eval_batches=None, outdir: str = "exp",
                  train_max_steps: int = 1_000_000, save_interval_steps: int = 5000,
                  eval_interval_steps: int = 1000, log_interval_steps: int = 1000, seed: int = 0,
@@ -55,6 +65,9 @@ class EftsTrainer:
         self.writer = writer
         self.max_keep_checkpoints = max_keep_checkpoints
         self.state = None
+        self.step_times: deque[dict] = deque(maxlen=self.HISTORY)
+        self.metrics_log: deque[dict] = deque(maxlen=self.HISTORY)
+        self.eval_log: deque[dict] = deque(maxlen=self.HISTORY)
         self._train_step = make_train_step(cfg, tx, accum_steps=accum_steps, device=self.device)
         self._eval_step = make_eval_step(cfg, device=self.device)
         os.makedirs(outdir, exist_ok=True)
@@ -87,39 +100,48 @@ class EftsTrainer:
             raise RuntimeError("call init_state first")
         totals = defaultdict(float)
         count = 0
+        wait = 0.0  # the interval's data wait, seconds
         t_last = time.time()
         step = self.state["step"]
         pending = None  # (step, epoch, packed metrics) awaiting the host readback
 
         def consume(p):
-            nonlocal count, t_last
+            nonlocal count, wait, t_last
             pstep, pepoch, packed = p
             vals = packed.tolist()
             count += 1
+            self.metrics_log.append({"step": pstep, **dict(zip(METRIC_KEYS, vals))})
             self._check_finite(vals[0], pstep)
             for k, v in zip(METRIC_KEYS, vals):
                 totals[k] += v
             if pstep % self.log_interval_steps == 0:
                 dt = time.time() - t_last
                 means = {k: v / max(count, 1) for k, v in totals.items()}
-                log.info("step %d (epoch %d): loss=%.4f mel=%.4f dur=%.4f (%.2f steps/s)", pstep, pepoch,
-                         means["loss"], means["mel_loss"], means["duration_loss"], count / max(dt, 1e-9))
+                log.info("step %d (epoch %d): loss=%.4f mel=%.4f dur=%.4f (%.2f steps/s, data wait %.1f ms a step)",
+                         pstep, pepoch, means["loss"], means["mel_loss"], means["duration_loss"],
+                         count / max(dt, 1e-9), 1e3 * wait / count)
                 if self.writer is not None:
                     for k, v in means.items():
                         self.writer.add_scalar(f"train/{k}", v, pstep)
                 totals.clear()
                 count = 0
+                wait = 0.0
                 t_last = time.time()
 
         try:
             while step < self.train_max_steps:
+                t_iter = time.perf_counter()
                 epoch, batch = next(self.train_iter)
+                t_data = time.perf_counter()
                 self.state, metrics = self._train_step(self.state, batch, self.gen)
                 step = self.state["step"]
                 packed = torch.stack([metrics[k] for k in METRIC_KEYS])
                 if pending is not None:
                     consume(pending)
                 pending = (step, epoch, packed)
+                wait += t_data - t_iter
+                self.step_times.append({"step": step, "epoch": epoch, "wall_s": time.perf_counter() - t_iter,
+                                        "data_wait_s": t_data - t_iter})
                 if self.eval_batches and step % self.eval_interval_steps == 0:
                     self.evaluate(step)
                 if step % self.save_interval_steps == 0:
@@ -159,6 +181,7 @@ class EftsTrainer:
         if peak is not None:
             means["align_peak"] = peak
         log.info("eval step %d: %s", step, " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+        self.eval_log.append({"step": step, **means})
         if self.writer is not None:
             for k, v in means.items():
                 self.writer.add_scalar(f"eval/{k}", v, step)

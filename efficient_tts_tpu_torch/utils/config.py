@@ -1,7 +1,7 @@
 """Config files: the `config.yml` beside a checkpoint -> the port's model configs.
 
 Counterpart of `efficient_tts_tpu/utils/config.py` (`load_config`,
-`model_config_from_dict`, `vocoder_config_from_dict`,
+`dump_config`, `model_config_from_dict`, `vocoder_config_from_dict`,
 `vocoder_config_near_checkpoint`). The optimizer block is read by
 `train/optim.py:optimizer_from_dict`.
 
@@ -34,6 +34,17 @@ def _parse(text: str, path: str) -> dict:
 def load_config(path: str) -> dict:
     with open(path) as f:
         return _parse(f.read(), path) or {}
+
+
+def dump_config(config: dict, outdir: str) -> str:
+    """Write `outdir/config.yml`, from which inference rebuilds the model."""
+    import yaml
+
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    return path
 
 
 def model_config_from_dict(config: dict):

@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "losses.fastspeech", "utils.preemption", "ops.mrf_int8", "ops.probe_matmul",
                  "bench.mrf_fused", "bench.probe_int8", "serve", "bin.serve", "bin.inference",
                  "bench.serving_load", "text", "text.cleaners", "text.mandarin", "utils.config",
-                 "data.dataset", "ops.launch_counts"):
+                 "data.dataset", "ops.launch_counts", "data.loader", "data.collate", "dsp", "dsp.mel",
+                 "dsp.filters", "native", "bin.train", "bench.corpus"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -125,10 +126,13 @@ def test_models_on_another_device_than_the_call_raise():
 
 
 def test_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
-    """The train step, eval step and trainer run on the card unless the
-    caller asks for the CPU, and never move there on their own."""
+    """The train step, eval step, trainer, training CLI and the loader's
+    device prefetch run on the card unless the caller asks for the CPU, and
+    never move there on their own."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.bin import train
+    from efficient_tts_tpu_torch.data.loader import device_prefetch
     from efficient_tts_tpu_torch.train.efts_train_step import make_eval_step, make_train_step
     from efficient_tts_tpu_torch.train.efts_trainer import EftsTrainer
     from efficient_tts_tpu_torch.train.optim import AdamWarmup
@@ -136,9 +140,14 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path
 
     tx = AdamWarmup()
     for call in (lambda: make_train_step(TR_CFG, tx), lambda: make_eval_step(TR_CFG),
+                 lambda: make_train_step(EFTS_CFG, tx),
                  lambda: EftsTrainer(TR_CFG, tx, iter(()), outdir=str(tmp_path)),
                  lambda: compat.efts_transformer_from_jax(init.init_efts_transformer(0, TR_CFG), TR_CFG,
-                                                          trainable=True)):
+                                                          trainable=True),
+                 lambda: compat.efts_cnn_from_jax(init.init_efts(0, EFTS_CFG), EFTS_CFG, trainable=True),
+                 lambda: device_prefetch(iter(())),
+                 lambda: train.main(["--config", str(tmp_path / "config.yml"), "--train_fid_scp",
+                                     str(tmp_path / "train.txt"), "--outdir", str(tmp_path / "exp")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     model = compat.efts_transformer_from_jax(init.init_efts_transformer(0, TR_CFG), TR_CFG, device="cpu",

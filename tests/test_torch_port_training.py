@@ -49,7 +49,7 @@ from efficient_tts_tpu.utils.config import optimizer_from_dict as joptimizer_fro
 from efficient_tts_tpu_torch import compat, init
 from efficient_tts_tpu_torch.losses.fastspeech import fastspeech_loss
 from efficient_tts_tpu_torch.models import model_class_for
-from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.nn.layers import dropout, split_generator
 from efficient_tts_tpu_torch.ops import alignment as tal
@@ -295,15 +295,14 @@ def test_forward_and_every_gradient_leaf_match_jax(params, impl):
     _assert_trees_close(compat.efts_transformer_to_jax(model, grads=True), grads_j)
 
 
-def test_inference_model_refuses_to_train_and_cnn_has_no_training_forward(params):
+def test_inference_model_refuses_to_train_and_both_models_train(params):
     model = compat.efts_transformer_from_jax(params, CFG, device="cpu")
     assert not any(p.requires_grad for p in model.parameters())
     with pytest.raises(RuntimeError, match="training_modules"):
         model(*(torch.zeros((1, 128), dtype=torch.long), torch.tensor([4]), torch.zeros((1, 128, 20)),
                 torch.tensor([8])))
     assert model_class_for(CFG, training=True).TRAINS
-    with pytest.raises(NotImplementedError):
-        model_class_for(EftsCNNConfig(), training=True)
+    assert model_class_for(EftsCNNConfig(), training=True) is EftsCNN
 
 
 def test_bridge_round_trip(params):
