@@ -138,6 +138,25 @@ Phases, each of which raises on failure:
         dkv and dq at every other length the CLI ran ([64, 4, T, 96] with
         ragged ids; T = 256, 640, 768, 896 on this corpus) against
         `flash_attention_reference` and its autograd, as in phase 3;
+     n. vocoder training on 4m's corpus: HiFi-GAN V1 with the MPD and the
+        MSD from seeded weights (`init.init_gan_state`): the first GAN step
+        on the card against the same step on the CPU, f32, B=2 crops of
+        8192 samples (every metric, each side's gradient and each leaf by
+        relative L2 from the first Adam moment, the spectral norm's u and
+        v; `GAN_CARD_TOL`); `bin.train_vocoder` at B=16, f32, with an EMA
+        of 0.999 and the dev set: 10 steps with finite losses, evals at 5
+        and 10 (72 f32 MRF launches each), a checkpoint, then `--resume` to
+        12; 3 steps with `--compute_dtype bfloat16`; `bin.extract_gta` on
+        4m's EFTS-CNN checkpoint (one mel per train utterance, its frame
+        count) and 2 steps of `--fine_tuning --base_mels_path`;
+        `bin.inference` on 4m's checkpoint and the trained vocoder (its
+        EMA folded: PCM equal to `pipeline.synthesize`, 72 f32 MRF
+        launches), the eval step's waveform through the f32 kernel against
+        `mrf_impl="plain"` at `F32_WAV_TOL`, and `bin.serve`'s engine on
+        both checkpoints in bf16 (18 bf16 MRF launches a stage); then the
+        GAN step at B=16, segment 8192, f32 and bf16 (CUDA events, median
+        of 10 after 2 warmup calls, its profile, launches and peak memory)
+        beside the CLI run's step wall and data wait;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -274,6 +293,21 @@ CNN_CPU_TOL = {"loss_rel": 1e-4, "leaf_of_own_max": 1e-4, "leaf_of_tree_max": 1e
 # the synthetic corpus: utterances and the mel memory cache (MB) that holds
 # the train set's mels, about 70 MB
 CORPUS_TRAIN, CORPUS_DEV, CORPUS_MEL_CACHE_MB = 384, 16, 128
+# 4n: the first GAN step on the card against the CPU, f32 (TF32 off) at V1,
+# B=2: every metric within the CPU tests' 1e-5 relative; each side's whole
+# gradient (from the first Adam moment) within 1e-4 relative in L2 and each
+# leaf within 5e-3 relative in L2; u and v within 1e-5 absolute. The CPU
+# tests' leafwise bounds (1e-4 and 1e-3 of a leaf's max) do not carry over:
+# every product sums in another order on the card, and a leaky ReLU whose
+# activation lies within rounding of 0 flips its slope; in the MPD's last
+# layers (about 100 positions a segment) one flip moves a weight-gradient
+# row by about 1/400. Measured on an H100 (PERF.md, PR 11): metrics 1.4e-6,
+# whole gradients 2.1e-5 (G) and 4.4e-5 (D), the worst leaf 9.6e-4 in L2
+# (6.5e-3 of its max), u and v 1.2e-6 (one f32 mat-vec of up to 2624 terms
+# summed in another order); the card against itself 1.4e-6 of a leaf's max
+GAN_CARD_TOL = {"metric_rel": 1e-5, "grad_rel_l2": 1e-4, "leaf_rel_l2": 5e-3, "uv_abs": 1e-5}
+# the vocoder CLI's batch and the GAN step's timed batch (HiFi-GAN V1's segment)
+GAN_B = 16
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -982,13 +1016,15 @@ def epoch_split(step_times):
     return out
 
 
-def corpus_training_phase(torch, voc, stages, new_launches, device="cuda"):
+def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda"):
     """4m: EFTS-CNN at `configs/lj_efts_cnn_char.yaml`'s widths trained on a
     seeded synthetic corpus through the training CLI, then the inference
     CLI on its checkpoint, and the EFTS-Transformer through the same CLI.
-    Returns the flash launches of the transformer's CLI run. `device` is the
-    card; "cpu" rehearses the phase's control flow at a small config."""
-    import tempfile
+    The corpus and the checkpoints are written under `work`. Returns the
+    flash launches of the transformer's CLI run and {"corpus", "cnn_checkpoint",
+    "work"} for 4n. `device` is the card; "cpu" rehearses the phase's control
+    flow at a small config."""
+    import contextlib
 
     from scipy.io import wavfile
 
@@ -1046,7 +1082,7 @@ def corpus_training_phase(torch, voc, stages, new_launches, device="cuda"):
         raise AssertionError(f"EFTS-CNN's first step on the card disagrees with the CPU: {fails[:5]}")
     del grads
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(work) as tmp:
         # ii. the corpus
         t0 = time.perf_counter()
         corpus = make_corpus(tmp, CORPUS_TRAIN, CORPUS_DEV, seed=0)
@@ -1182,7 +1218,267 @@ def corpus_training_phase(torch, voc, stages, new_launches, device="cuda"):
          "mel_extraction_ms_per_utterance": extract_ms, "mel_backend": native.backend(), "cli": split,
          **summary})
     del state, step, model, fixed
-    return tr_flash
+    return tr_flash, {"corpus": corpus, "cnn_checkpoint": ckpt, "work": work}
+
+def tree_leaves(tree, path=()):
+    """(path, array) of every leaf of a nested dict / list tree, in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, path + (i,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def gan_step_card_vs_cpu(torch, voc_cfg, wav_files, device="cuda"):
+    """4n-i: the first GAN step on the card against the same step on the CPU,
+    f32, B=2 crops of `wav_files`: every metric, every gradient leaf (from
+    the first Adam moment, mu = (1 - b1) g) and the spectral norm's u and v."""
+    from efficient_tts_tpu_torch import compat, init
+    from efficient_tts_tpu_torch.data.collate import collate_mel_audio
+    from efficient_tts_tpu_torch.data.dataset import MelAudioSegmentDataset
+    from efficient_tts_tpu_torch.train.hifigan_train_step import make_gan_train_step
+    from efficient_tts_tpu_torch.train.optim import HiFiGANAdam
+
+    tree = init.init_gan_state(11, voc_cfg)
+    ds = MelAudioSegmentDataset(wav_files, segment_size=voc_cfg.segment_size, seed=11)
+    batch = collate_mel_audio([ds[i] for i in range(2)])
+    tx = HiFiGANAdam()
+    runs = {}
+    for dname in (device, "cpu"):
+        st = compat.gan_state_from_jax(tree, voc_cfg, tx, tx, device=dname)
+        t0 = time.perf_counter()
+        st, m = make_gan_train_step(voc_cfg, tx, tx, device=dname)(st, batch)
+        metrics = {k: float(v) for k, v in m.items()}
+        mu = {side: st[side]["opt_state"]["mu"] for side in ("gen", "disc")}
+        runs[dname] = (metrics, compat.gan_state_to_jax(st, grads=mu), compat.gan_state_to_jax(st),
+                       time.perf_counter() - t0)
+        del st, m, mu
+    (m_dev, g_dev, p_dev, s_dev), (m_cpu, g_cpu, p_cpu, s_cpu) = runs[device], runs["cpu"]
+    metric_err = {k: abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30) for k in m_cpu}
+    fails, worst, whole = [], {}, {}
+    for side in ("gen", "disc"):
+        worst[side] = {"rel_l2": (0.0, ""), "of_own_max": (0.0, "")}
+        num = den = 0.0
+        for (path, a), (_, b) in zip(tree_leaves(g_cpu[side]["params"]), tree_leaves(g_dev[side]["params"])):
+            name = "/".join(map(str, path))
+            d2, a2 = float(((b - a).astype(np.float64) ** 2).sum()), float((a.astype(np.float64) ** 2).sum())
+            num, den = num + d2, den + a2
+            rel = (d2 / a2) ** 0.5 if a2 else (0.0 if d2 == 0 else math.inf)
+            if rel > GAN_CARD_TOL["leaf_rel_l2"]:
+                fails.append((side, name, rel))
+            own = float(np.abs(a).max())
+            worst[side]["rel_l2"] = max(worst[side]["rel_l2"], (rel, name))
+            if own:
+                worst[side]["of_own_max"] = max(worst[side]["of_own_max"], (float(np.abs(b - a).max()) / own, name))
+        whole[side] = (num / den) ** 0.5
+        if whole[side] > GAN_CARD_TOL["grad_rel_l2"]:
+            fails.append((side, "whole gradient", whole[side]))
+    uv_err = max(float(np.abs(b - a).max())
+                 for (path, a), (_, b) in zip(tree_leaves(p_cpu["disc"]["params"]["msd"]),
+                                              tree_leaves(p_dev["disc"]["params"]["msd"]))
+                 if path[-1] in ("u", "v"))
+    log({"phase": "train_card_vs_cpu", "model": "hifigan_v1_gan_step", "B": 2, "segment": voc_cfg.segment_size,
+         "dtype": "f32", "metrics": m_dev, "metric_rel_err": metric_err, "grad_rel_l2": whole,
+         "worst_leaf": worst, "uv_max_abs_err": uv_err, "failing": fails[:5], "card_s": s_dev, "cpu_s": s_cpu,
+         "tolerance": GAN_CARD_TOL})
+    if (fails or max(metric_err.values()) > GAN_CARD_TOL["metric_rel"] or uv_err > GAN_CARD_TOL["uv_abs"]
+            or not all(math.isfinite(v) for v in m_dev.values())):
+        raise AssertionError(f"the first GAN step on the card disagrees with the CPU: {metric_err}, {fails[:5]}, "
+                             f"u/v {uv_err}")
+    del runs, g_dev, g_cpu, p_dev, p_cpu
+
+
+def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
+    """4n: HiFi-GAN V1 training on 4m's corpus: the first GAN step on the card
+    against the CPU; `bin.train_vocoder` (f32 with an EMA and evals, a
+    resume, bf16); `bin.extract_gta` on 4m's EFTS-CNN checkpoint and GTA
+    fine-tuning; `bin.inference` and a bf16 serving engine on the trained
+    vocoder; the GAN step's time, profile and memory. `device` is the card;
+    "cpu" rehearses the phase's control flow at a small config."""
+    from scipy.io import wavfile
+
+    from efficient_tts_tpu_torch import pipeline
+    from efficient_tts_tpu_torch.bench import time_ms
+    from efficient_tts_tpu_torch.bin import extract_gta, inference, train_vocoder
+    from efficient_tts_tpu_torch.bin import serve as serve_cli
+    from efficient_tts_tpu_torch.data.collate import collate_mel_audio
+    from efficient_tts_tpu_torch.data.dataset import MelAudioSegmentDataset, load_filepaths_and_text
+    from efficient_tts_tpu_torch.dsp.mel import num_frames
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.text import text_to_sequence
+    from efficient_tts_tpu_torch.train.hifigan_train_step import (batch_to_device, init_gan_state,
+                                                                  make_gan_eval_step, make_gan_train_step)
+    from efficient_tts_tpu_torch.train.optim import HiFiGANAdam
+    from efficient_tts_tpu_torch.utils.config import load_config, vocoder_config_from_dict
+    from efficient_tts_tpu_torch.utils.masks import pad_list
+
+    dev = torch.device(device)
+    corpus, work, cnn_ckpt = trained["corpus"], trained["work"], trained["cnn_checkpoint"]
+    config_path = os.path.join(work, "vocoder.json")
+    if not os.path.exists(config_path):  # HiFi-GAN V1: the defaults
+        with open(config_path, "w") as f:
+            json.dump({}, f)
+    voc_cfg = vocoder_config_from_dict(load_config(config_path))
+    cpu = ["--use_cpu"] if dev.type == "cpu" else []
+    wavs, scps = {}, {}
+    for name in ("train", "dev"):
+        wavs[name] = [os.path.join(corpus["wavs"], os.path.basename(p)) for p, _ in load_filepaths_and_text(corpus[name])]
+        scps[name] = os.path.join(work, f"{name}_wavs.scp")
+        with open(scps[name], "w") as f:
+            f.writelines(w + "\n" for w in wavs[name])
+
+    # i. the card against the CPU: the first GAN step
+    gan_step_card_vs_cpu(torch, voc_cfg, wavs["train"], device)
+
+    # ii. the vocoder CLI: f32 with an EMA and evals on the dev set, a resume, bf16
+    voc_out = os.path.join(work, "exp_vocoder")
+    base = [*cpu, "--config", config_path, "--wav_scp", scps["train"], "--batch_size", str(GAN_B),
+            "--log_interval_steps", "1", "--max_keep_checkpoints", "2"]
+    ema = ["--ema_decay", "0.999"]
+    mrf.reset_launches()
+    t0 = time.perf_counter()
+    voc_tr = train_vocoder.main([*base, *ema, "--outdir", voc_out, "--dev_wav_scp", scps["dev"],
+                                 "--train_max_steps", "10", "--save_interval_steps", "10", "--eval_interval_steps",
+                                 "5"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    eval_launches = new_launches["train_vocoder_eval", "f32"] = dict(mrf.launches)
+    saved = sorted(n for n in os.listdir(voc_out) if n.startswith("checkpoint-"))
+    metrics_log = list(voc_tr.metrics_log)
+    cli_split = epoch_split(voc_tr.step_times)
+    log({"phase": "main_path", "what": "bin.train_vocoder, HiFi-GAN V1", "dtype": "f32", "steps": voc_tr.state["step"],
+         "batch_size": GAN_B, "seconds": cli_s, "g_loss": [m["g_loss"] for m in metrics_log],
+         "d_loss": [m["d_loss"] for m in metrics_log], "mel_l1": [m["mel_l1"] for m in metrics_log],
+         "evals": list(voc_tr.eval_log), "checkpoints": saved, "mrf_launches": keyed(eval_launches),
+         "step_times": cli_split, "step_wall_ms": [1e3 * r["wall_s"] for r in voc_tr.step_times],
+         "data_wait_ms": [1e3 * r["data_wait_s"] for r in voc_tr.step_times]})
+    # each eval vocodes the one batch of 16 dev segments: 18 f32 MRF launches a stage
+    if (voc_tr.state["step"] != 10 or len(metrics_log) != 10
+            or not all(math.isfinite(v) for m in metrics_log for v in m.values())
+            or [e["step"] for e in voc_tr.eval_log] != [5, 10]
+            or not all(math.isfinite(e["mel_l1"]) for e in voc_tr.eval_log)
+            or saved != ["checkpoint-10steps"] or "ema" not in voc_tr.state
+            or eval_launches != stage_launches(stages, "f32", 2)):
+        raise AssertionError(f"the vocoder CLI: step {voc_tr.state['step']}, metrics {metrics_log[-1:]}, evals "
+                             f"{voc_tr.eval_log}, checkpoints {saved}, launches {eval_launches}")
+    eval_batch = voc_tr.eval_batches[0]
+    del voc_tr
+    resumed = train_vocoder.main([*base, *ema, "--outdir", voc_out, "--resume",
+                                  os.path.join(voc_out, "checkpoint-10steps"), "--train_max_steps", "12",
+                                  "--save_interval_steps", "12"])
+    log({"phase": "main_path", "what": "bin.train_vocoder --resume", "steps": resumed.state["step"],
+         "trained_steps": [r["step"] for r in resumed.step_times],
+         "g_loss": [m["g_loss"] for m in resumed.metrics_log]})
+    if resumed.state["step"] != 12 or [r["step"] for r in resumed.step_times] != [11, 12]:
+        raise AssertionError(f"the vocoder resume trained steps {[r['step'] for r in resumed.step_times]}")
+    voc_ckpt = os.path.join(voc_out, "checkpoint-12steps")
+    folded = resumed.state["ema"].fold()
+    del resumed
+    bf = train_vocoder.main([*base, "--outdir", os.path.join(work, "exp_vocoder_bf16"), "--compute_dtype",
+                             "bfloat16", "--train_max_steps", "3", "--save_interval_steps", "3"])
+    bf_log = list(bf.metrics_log)
+    log({"phase": "main_path", "what": "bin.train_vocoder --compute_dtype bfloat16", "steps": bf.state["step"],
+         "g_loss": [m["g_loss"] for m in bf_log], "d_loss": [m["d_loss"] for m in bf_log],
+         "step_wall_ms": [1e3 * r["wall_s"] for r in bf.step_times]})
+    if bf.state["step"] != 3 or not all(math.isfinite(v) for m in bf_log for v in m.values()):
+        raise AssertionError(f"the bf16 vocoder CLI: {bf_log}")
+    del bf
+
+    # iii. GTA mels from 4m's EFTS-CNN checkpoint, then fine-tuning on them
+    gta = os.path.join(work, "gta")
+    t0 = time.perf_counter()
+    n_gta = extract_gta.main([*cpu, "--fid_scp", corpus["train"], "--checkpoint", cnn_ckpt, "--outdir", gta,
+                              "--batch_size", "32"])
+    gta_s = time.perf_counter() - t0
+    shapes_ok = all(np.load(os.path.join(gta, os.path.splitext(os.path.basename(w))[0] + ".npy")).shape
+                    == (voc_cfg.num_mels, num_frames(wavfile.read(w)[1].shape[0])) for w in wavs["train"][:32])
+    ft = train_vocoder.main([*base, "--outdir", os.path.join(work, "exp_vocoder_ft"), "--fine_tuning",
+                             "--base_mels_path", gta, "--train_max_steps", "2", "--save_interval_steps", "2"])
+    ft_log = list(ft.metrics_log)
+    log({"phase": "main_path", "what": "bin.extract_gta + bin.train_vocoder --fine_tuning", "gta_mels": n_gta,
+         "gta_seconds": gta_s, "lengths_match_wavs": shapes_ok, "steps": ft.state["step"],
+         "g_loss": [m["g_loss"] for m in ft_log]})
+    if (n_gta != len(wavs["train"]) or not shapes_ok or ft.state["step"] != 2
+            or not all(math.isfinite(v) for m in ft_log for v in m.values())):
+        raise AssertionError(f"GTA extraction and fine-tuning: {n_gta} mels, lengths {shapes_ok}, {ft_log}")
+    del ft
+
+    # iv. the inference CLI on 4m's EFTS-CNN and the trained vocoder (its EMA),
+    # f32 through the f32 MRF kernel, PCM against pipeline.synthesize
+    items = load_filepaths_and_text(corpus["dev"])[:8]
+    test_scp = os.path.join(work, "test_vocoder.txt")
+    with open(test_scp, "w") as f:
+        f.writelines(f"{p}|{t}\n" for p, t in items)
+    loaded = inference.load_vocoder(voc_ckpt, dev)
+    same_fold = all(torch.equal(loaded.state_dict()[k], v) for k, v in folded.state_dict().items())
+    mrf.reset_launches()
+    inference.main([*cpu, "--test_fid_scp", test_scp, "--checkpoint", cnn_ckpt, "--outdir",
+                    os.path.join(work, "wavs_vocoder"), "--batch_size", "8", "--vocoder_checkpoint", voc_ckpt])
+    inf_launches = new_launches["inference_cli_trained_vocoder", "f32"] = dict(mrf.launches)
+    model, _ = inference.load_acoustic_model(cnn_ckpt, dev)
+    seqs = [np.asarray(text_to_sequence(t), np.int32) for _, t in items]
+    wav, wl = pipeline.synthesize(model, folded, pad_list(seqs), np.asarray([len(x) for x in seqs], np.int32),
+                                  device=dev)
+    steps = []
+    for i, (path, _) in enumerate(items):
+        sr, pcm = wavfile.read(os.path.join(work, "wavs_vocoder", os.path.splitext(os.path.basename(path))[0]
+                                            + "_gen.wav"))
+        want = (np.clip(wav[i, : int(wl[i])], -1.0, 1.0) * 32767).astype(np.int16)
+        if sr != voc_cfg.sampling_rate or pcm.shape != want.shape:
+            raise AssertionError(f"the inference CLI wrote {pcm.shape} at {sr} Hz, expected {want.shape}")
+        steps.append(int(np.abs(pcm.astype(np.int32) - want).max()))
+    # the eval step's vocoding through the f32 kernel against its plain version
+    eval_k = make_gan_eval_step(voc_cfg, device=dev)(folded, eval_batch)
+    eval_p = make_gan_eval_step(voc_cfg, mrf_impl="plain", device=dev)(folded, eval_batch)
+    eval_stats = err_stats(eval_k["wav"], eval_p["wav"])
+    eval_ok = eval_stats["max_abs_err"] <= F32_WAV_TOL["max_abs"] and eval_stats["rel_rms"] <= F32_WAV_TOL["rel_rms"]
+    log({"phase": "main_path", "what": "bin.inference on the trained vocoder", "checkpoint": "checkpoint-12steps (EMA)",
+         "utterances": len(items), "max_pcm_steps_vs_pipeline": max(steps), "load_vocoder_equals_fold": same_fold,
+         "mrf_launches": keyed(inf_launches), "eval_mel_l1_kernel": float(eval_k["mel_l1"]),
+         "eval_mel_l1_plain": float(eval_p["mel_l1"]), "eval_wav_vs_plain": eval_stats, "tolerance": F32_WAV_TOL})
+    if (max(steps) != 0 or not same_fold or inf_launches != stage_launches(stages, "f32", 1) or not eval_ok
+            or not np.isfinite(wav).all()):
+        raise AssertionError(f"inference on the trained vocoder: PCM steps {steps}, fold {same_fold}, launches "
+                             f"{inf_launches}, eval vs plain {eval_stats}")
+    del model, wav, eval_k, eval_p
+
+    # the serving CLI's engine on the same checkpoints in bf16: K1's stages
+    args = serve_cli.get_parser().parse_args(["--checkpoint", cnn_ckpt, "--vocoder_checkpoint", voc_ckpt, "--bf16",
+                                              "--no_warmup", *(["--use_cpu"] if cpu else [])])
+    engine = serve_cli.build_engine(args)
+    mrf.reset_launches()
+    served = engine.synthesize([t for _, t in items])
+    serve_launches = new_launches["serve_trained_vocoder", "bf16"] = dict(mrf.launches)
+    log({"phase": "main_path", "what": "bin.serve engine on the trained vocoder", "dtype": "bf16",
+         "texts": len(items), "samples": [len(w) for w in served], "mrf_launches": keyed(serve_launches)})
+    if (sorted(serve_launches) != sorted(stage_launches(stages, "bf16", 1))
+            or any(n % 18 for n in serve_launches.values()) or not all(np.isfinite(w).all() for w in served)):
+        raise AssertionError(f"the bf16 engine on the trained vocoder: launches {serve_launches}")
+    del engine, served
+
+    # v. the GAN step at B=16, segment 8192: CUDA events, profile, peak memory
+    ds = MelAudioSegmentDataset(wavs["train"], segment_size=voc_cfg.segment_size, seed=5)
+    fixed = batch_to_device(collate_mel_audio([ds[i] for i in range(GAN_B)]), dev)
+    tx = HiFiGANAdam()
+    for cdt, dname in ((None, "f32"), (torch.bfloat16, "bf16")):
+        state = init_gan_state(0, voc_cfg, tx, tx, ema_decay=0.999, device=dev)
+        step = make_gan_train_step(voc_cfg, tx, tx, ema_decay=0.999, compute_dtype=cdt, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_step = time_ms(lambda: step(state, fixed), iters=10)
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(torch, lambda: step(state, fixed))
+        summary = profile_summary(prof, t_step["median"], ()) if prof else {"device_busy_ms": "not measured"}
+        log({"phase": "timing", "what": "gan_train_step", "model": "hifigan_v1 + mpd + msd", "B": GAN_B,
+             "segment": voc_cfg.segment_size, "dtype": dname, "ms": t_step["median"], "ms_p25": t_step["p25"],
+             "ms_p75": t_step["p75"], "n": t_step["n"], "max_memory_allocated_gb": peak / 2**30,
+             "params_m": {side: sum(p.numel() for p in state[side]["params"].parameters()) / 1e6
+                          for side in ("gen", "disc")},
+             "cli_f32": cli_split, **summary})
+        del state, step
 
 
 def build_tree(path):
@@ -1905,8 +2201,13 @@ def main(argv=None) -> int:
     del engines
 
     # 4m. EFTS-CNN training on a synthetic corpus through the training CLI,
-    # inference from its checkpoint, and the EFTS-Transformer through the CLI
-    train_cli_flash = corpus_training_phase(torch, voc, stages, new_launches)
+    # inference from its checkpoint, and the EFTS-Transformer through the CLI;
+    # 4n. HiFi-GAN training on the same corpus, GTA mels from 4m's checkpoint
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        train_cli_flash, trained = corpus_training_phase(torch, voc, stages, new_launches, work)
+        vocoder_training_phase(torch, stages, new_launches, trained)
     # the flash kernels at the CLI's other lengths, held as phase 3 holds
     # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
     cli_shapes = sorted({(t, seg) for (_, t, seg) in train_cli_flash} - set(bwd_shapes))

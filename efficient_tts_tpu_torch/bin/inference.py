@@ -6,8 +6,9 @@
 Reads the `config.yml` beside the checkpoint, rebuilds the acoustic model
 and loads the checkpoint written by `train/checkpoint.py:save_checkpoint`
 (an EFTS-CNN trainer's checkpoint has its weight norm folded here),
-loads the vocoder (a reference HiFi-GAN generator file, or random weights
-with a warning), synthesizes the filelist's texts in batches through
+loads the vocoder (a checkpoint of `bin/train_vocoder.py`, its EMA
+generator when it has one, else its generator, weight norm folded; or a
+reference HiFi-GAN generator file; or random weights with a warning), synthesizes the filelist's texts in batches through
 `pipeline.synthesize` in f32 and writes PCM_16 wavs. Runs on the card unless
 `--use_cpu` is given; without a card it raises. `--repeats N` runs the set N
 times (pass 0 includes the kernels' first build); `--timing_json` writes the
@@ -31,7 +32,8 @@ def get_parser():
     p.add_argument("--test_fid_scp", required=True, help="test filelist (path|text)")
     p.add_argument("--checkpoint", required=True, help="acoustic model checkpoint (config.yml beside it)")
     p.add_argument("--outdir", required=True)
-    p.add_argument("--vocoder_checkpoint", default=None, help="reference HiFi-GAN generator file (torch state dict)")
+    p.add_argument("--vocoder_checkpoint", default=None,
+                   help="a bin.train_vocoder checkpoint, or a reference HiFi-GAN generator file (torch state dict)")
     p.add_argument("--num_utts", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--use_cpu", action="store_true", help="run on the CPU (the default is the card)")
@@ -75,9 +77,9 @@ def load_acoustic_model(checkpoint: str, device):
 
 
 def load_vocoder(path: str | None, device):
-    """The HiFi-GAN generator on `device`: from a reference generator file
-    ({"generator": sd} or {"model": sd}, weight-normed or folded) with the
-    config.yml beside it or the V1 defaults, else seeded random weights."""
+    """The HiFi-GAN generator on `device` with the config.yml beside `path`
+    or the V1 defaults: from a `bin/train_vocoder.py` checkpoint or a
+    reference generator file, else seeded random weights."""
     from efficient_tts_tpu_torch import compat, init
     from efficient_tts_tpu_torch.utils.config import vocoder_config_near_checkpoint
 
@@ -89,16 +91,25 @@ def load_vocoder(path: str | None, device):
 
 
 def _load_vocoder(path: str, voc_cfg, device):
+    """A vocoder trainer's checkpoint ({"gen": {"params": sd, ...}, ...[,
+    "ema": sd]}): the EMA generator when present, else the generator, folded
+    for inference; or a reference generator file ({"generator": sd},
+    {"model": sd} or a bare state dict, weight-normed or folded)."""
     from efficient_tts_tpu_torch import compat
+    from efficient_tts_tpu_torch.models.hifigan_train import HiFiGANTrainGenerator
 
-    if path.endswith((".pt", ".pkl")) or os.path.isfile(path):
-        return compat.hifigan_generator_from_state_dict(compat.load_reference_checkpoint(path), voc_cfg,
-                                                        device=device)
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is a checkpoint directory of the JAX vocoder trainer; the port reads reference "
-            "generator files only, its HiFi-GAN trainer is not ported yet (ROADMAP Queue 1 item 8)")
-    raise ValueError(f"unsupported vocoder checkpoint: {path}")
+            f"{path} is an orbax checkpoint directory of the JAX vocoder trainer, which the port does not read; "
+            "pass a checkpoint of efficient_tts_tpu_torch.bin.train_vocoder or a reference generator file")
+    if not os.path.isfile(path):
+        raise ValueError(f"unsupported vocoder checkpoint: {path}")
+    state = torch.load(os.path.abspath(path), map_location="cpu", weights_only=False)
+    if isinstance(state, dict) and isinstance(state.get("gen"), dict) and "params" in state["gen"]:
+        gen = HiFiGANTrainGenerator(voc_cfg)
+        gen.load_state_dict(state["ema"] if "ema" in state else state["gen"]["params"])
+        return gen.fold(device=device)
+    return compat.hifigan_generator_from_state_dict(compat.load_reference_checkpoint(path), voc_cfg, device=device)
 
 
 def _write_wav(path: str, wav: np.ndarray, sr: int) -> None:

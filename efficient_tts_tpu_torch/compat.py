@@ -15,6 +15,17 @@ EFTS-CNN keeping weight norm unfolded, {v, g} of layout [out, in, k] and
 model's parameters (or their gradients) back onto the JAX tree's keys and
 layouts, so the two can be compared leaf by leaf.
 
+The vocoder's GAN state crosses the same way: `gan_state_from_jax` builds
+the trainable generator (weight norm as {v, g}; a transposed conv's g on
+its input axis, [in, 1, 1]), the period discriminators (HWIO <-> [out, in,
+kh, 1]), the scale discriminators (grouped WIO [k, in / g, out] <-> [out,
+in / g, k]; spectral norm as {w_orig, u, v, b}) and the EMA generator
+from a JAX GAN state tree, with fresh optimizer states (the moments start
+at zero on both sides: the bridge carries parameters only), and
+`gan_state_to_jax` maps a port state, or gradients named as its
+parameters, back onto the JAX tree. `generator_to_jax` is the generator's
+half, on which `HiFiGANTrainGenerator.fold` rests.
+
 `hifigan_generator_from_state_dict` loads the reference's own HiFi-GAN
 generator files (a torch state dict, weight-normed or folded, as
 `load_reference_checkpoint` reads them): counterpart of
@@ -30,7 +41,8 @@ import torch
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer, EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
-from efficient_tts_tpu_torch.nn.layers import WNConv1d, fold_weight_norm
+from efficient_tts_tpu_torch.models.hifigan_train import Discriminators, HiFiGANTrainGenerator
+from efficient_tts_tpu_torch.nn.layers import SNConv1d, WNConv1d, fold_weight_norm
 from efficient_tts_tpu_torch.utils.device import resolve_device
 
 
@@ -72,8 +84,13 @@ def _load_duration_predictor(mod, p):
 # Trainable parameters as (path in the JAX tree, port parameter, layout),
 # read one way by the loaders and the other way by `efts_*_to_jax`.
 # Layouts: "linear" [in, out] <-> [out, in], "conv" [k, in, out] <-> [out,
-# in, k] (both self-inverse transposes), "same" as it is.
-_TO_PORT = {"linear": lambda a: a.T, "conv": lambda a: np.transpose(a, (2, 1, 0)), "same": lambda a: a}
+# in, k] (both self-inverse transposes), "conv_transpose" [k, in, out] <->
+# [in, out, k], "conv2d" HWIO <-> [out, in, kh, kw], "same" as it is.
+_TO_PORT = {"linear": lambda a: a.T, "conv": lambda a: np.transpose(a, (2, 1, 0)),
+            "conv_transpose": lambda a: np.transpose(a, (1, 2, 0)),
+            "conv2d": lambda a: np.transpose(a, (3, 2, 0, 1)), "same": lambda a: a}
+_TO_JAX = {**_TO_PORT, "conv_transpose": lambda a: np.transpose(a, (2, 0, 1)),
+           "conv2d": lambda a: np.transpose(a, (2, 3, 1, 0))}
 
 
 def _entries_linear(path, mod, layout="linear"):
@@ -98,13 +115,18 @@ def _entries_block(path, block):
     yield from _entries_norm(path + ("final_norm",), block.final_norm)
 
 
+def _entries_wn(path, conv, layout="conv"):
+    """{v, g, b}; g's layout is v's ([1, 1, out] <-> [out, 1, 1] for a conv)."""
+    yield path + ("v",), conv.v, layout
+    yield path + ("g",), conv.g, layout
+    yield path + ("b",), conv.bias, "same"
+
+
 def _entries_res_block(path, block):
     for i, conv in enumerate(block.layers):
         lp = path + ("layers", i)
         if isinstance(conv, WNConv1d):
-            yield lp + ("v",), conv.v, "conv"
-            yield lp + ("g",), conv.g, "conv"  # [1, 1, out] <-> [out, 1, 1]
-            yield lp + ("b",), conv.bias, "same"
+            yield from _entries_wn(lp, conv)
         else:
             yield from _entries_linear(lp, conv, "conv")
 
@@ -145,6 +167,34 @@ def _entries_transformer(model: EftsTransformer):
     yield from _entries_block(("decoder",), model.decoder)
     yield from _entries_linear(("mel_out",), model.mel_out)
     yield from _entries_duration_predictor(model.duration_predictor)
+
+
+def _entries_generator(gen: HiFiGANTrainGenerator):
+    yield from _entries_wn(("conv_pre",), gen.conv_pre)
+    for i, up in enumerate(gen.ups):
+        yield from _entries_wn(("ups", i), up, "conv_transpose")
+    for i, block in enumerate(gen.resblocks):
+        for name, convs in block.named_children():  # convs1/convs2 or convs
+            for j, conv in enumerate(convs):
+                yield from _entries_wn(("resblocks", i, name, j), conv)
+    yield from _entries_wn(("conv_post",), gen.conv_post)
+
+
+def _entries_discriminators(disc: Discriminators):
+    for i, d in enumerate(disc.mpd.discriminators):
+        for j, conv in enumerate(d.convs):
+            yield from _entries_wn(("mpd", "discriminators", i, "convs", j), conv, "conv2d")
+        yield from _entries_wn(("mpd", "discriminators", i, "conv_post"), d.conv_post, "conv2d")
+    for i, d in enumerate(disc.msd.discriminators):
+        for j, conv in enumerate([*d.convs, d.conv_post]):
+            path = ("msd", "discriminators", i) + (("convs", j) if j < len(d.convs) else ("conv_post",))
+            if isinstance(conv, SNConv1d):
+                yield path + ("w_orig",), conv.w_orig, "conv"
+                yield path + ("u",), conv.u, "same"
+                yield path + ("v",), conv.v, "same"
+                yield path + ("b",), conv.bias, "same"
+            else:
+                yield from _entries_wn(path, conv)
 
 
 def _load_entries(entries, tree):
@@ -206,7 +256,7 @@ def efts_cnn_to_jax(model: EftsCNN, grads: bool = False) -> dict:
     """A training model's parameters (or, with `grads`, their `.grad`, zeros
     where there is none) as a numpy tree with the JAX package's keys and
     layouts, weight norm as {v, g, b}."""
-    return _tree_from_entries(_entries_cnn(model), grads)
+    return _tree_from_entries(_entries_cnn(model), _grad if grads else (lambda p: p))
 
 
 @torch.no_grad()
@@ -226,15 +276,85 @@ def efts_transformer_from_jax(params: dict, cfg: EftsTransformerConfig, device="
 def efts_transformer_to_jax(model: EftsTransformer, grads: bool = False) -> dict:
     """The model's parameters (or, with `grads`, their `.grad`, zeros where
     there is none) as a numpy tree with the JAX package's keys and layouts."""
-    return _tree_from_entries(_entries_transformer(model), grads)
+    return _tree_from_entries(_entries_transformer(model), _grad if grads else (lambda p: p))
 
 
-def _tree_from_entries(entries, grads: bool) -> dict:
+def _tree_from_entries(entries, value_of=lambda p: p) -> dict:
+    """The entries as a JAX tree of `value_of(parameter)` (zeros where it is
+    None), in the JAX layouts."""
     tree: dict = {}
     for path, param, layout in entries:
-        t = param.grad if grads else param
+        t = value_of(param)
         value = np.zeros(tuple(param.shape), np.float32) if t is None else t.detach().float().cpu().numpy()
-        _put(tree, path, np.array(_TO_PORT[layout](value), order="C"))
+        _put(tree, path, np.array(_TO_JAX[layout](value), order="C"))
+    return tree
+
+
+def _grad(param):
+    return param.grad
+
+
+def _named(module, grads: dict):
+    """value_of for `_tree_from_entries`: a parameter's entry in `grads`
+    ({name: tensor}, named as `module` names its parameters)."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    return lambda p: grads.get(names.get(id(p)))
+
+
+@torch.no_grad()
+def generator_from_jax(params: dict, cfg: HiFiGANConfig, device="cuda") -> HiFiGANTrainGenerator:
+    """The trainable generator of a JAX generator tree ({v, g, b} convs),
+    every parameter requiring a gradient."""
+    dev = resolve_device(device)
+    gen = HiFiGANTrainGenerator(cfg)
+    _load_entries(_entries_generator(gen), params)
+    return gen.requires_grad_(True).to(dev)
+
+
+@torch.no_grad()
+def generator_to_jax(gen: HiFiGANTrainGenerator) -> dict:
+    """The trainable generator's parameters as the JAX tree, {v, g, b}."""
+    return _tree_from_entries(_entries_generator(gen))
+
+
+@torch.no_grad()
+def gan_state_from_jax(state_tree: dict, voc_cfg: HiFiGANConfig, gen_tx, disc_tx, device="cuda") -> dict:
+    """The port's GAN state {"gen": {"params", "opt_state"}, "disc":
+    {"params", "opt_state"}, "step"[, "ema"]} from a JAX GAN state's
+    parameters (its "gen" and "disc" "params", its "step" and, when present,
+    its "ema"); the optimizer states are `gen_tx.init` / `disc_tx.init`'s."""
+    dev = resolve_device(device)
+    gen = generator_from_jax(state_tree["gen"]["params"], voc_cfg, dev)
+    disc = Discriminators()
+    _load_entries(_entries_discriminators(disc), state_tree["disc"]["params"])
+    disc = disc.requires_grad_(True).to(dev)
+    state = {"gen": {"params": gen, "opt_state": gen_tx.init(_trainable(gen))},
+             "disc": {"params": disc, "opt_state": disc_tx.init(_trainable(disc))},
+             "step": int(np.asarray(state_tree.get("step", 0)))}
+    if "ema" in state_tree:
+        state["ema"] = generator_from_jax(state_tree["ema"], voc_cfg, dev).requires_grad_(False)
+    return state
+
+
+def _trainable(module) -> dict:
+    return {n: p for n, p in module.named_parameters() if p.requires_grad}
+
+
+@torch.no_grad()
+def gan_state_to_jax(state: dict, grads: dict | None = None) -> dict:
+    """A port GAN state's parameters as the JAX state tree ({"gen":
+    {"params"}, "disc": {"params": {"mpd", "msd"}}, "step"[, "ema"]}), u
+    and v included. With `grads` ({"gen": {name: tensor}, "disc": {name:
+    tensor}}, named as the modules' parameters) the tree holds those
+    gradients instead, zeros for u, v and any parameter without one."""
+    gen, disc = state["gen"]["params"], state["disc"]["params"]
+    g_value = _named(gen, grads["gen"]) if grads is not None else (lambda p: p)
+    d_value = _named(disc, grads["disc"]) if grads is not None else (lambda p: p)
+    tree = {"gen": {"params": _tree_from_entries(_entries_generator(gen), g_value)},
+            "disc": {"params": _tree_from_entries(_entries_discriminators(disc), d_value)},
+            "step": int(state["step"])}
+    if "ema" in state and grads is None:
+        tree["ema"] = generator_to_jax(state["ema"])
     return tree
 
 

@@ -4,8 +4,9 @@ Counterpart of `efficient_tts_tpu/data/collate.py:collate_text_mel`,
 copied: sort by text length, descending, and zero-pad text and mel, the
 padded lengths rounded up to bucket multiples, so the train step sees a
 small set of shapes (the cuDNN plans and the flash kernel's T % 128 rule
-depend on them). The other collates (durations, DurationModel, vocoder
-segments) wait for the modules that use them.
+depend on them). `collate_mel_audio` stacks the vocoder's fixed-size
+segments. The other collates (durations, DurationModel) wait for the
+modules that use them.
 """
 
 from __future__ import annotations
@@ -49,3 +50,13 @@ def collate_text_mel(
         text[i, : len(t)] = t
         mel[i, : m.shape[0]] = m
     return {"text": text, "text_lengths": text_lengths, "mel": mel, "mel_lengths": mel_lengths}
+
+
+def collate_mel_audio(batch: list) -> dict:
+    """[(mel [F, M], audio [S], mel_loss [F, M])] -> {mel [B, F, M], audio
+    [B, S], mel_loss [B, F, M]}, f32 (every segment has the same size)."""
+    return {
+        "mel": np.stack([x[0] for x in batch]).astype(np.float32),
+        "audio": np.stack([x[1] for x in batch]).astype(np.float32),
+        "mel_loss": np.stack([x[2] for x in batch]).astype(np.float32),
+    }

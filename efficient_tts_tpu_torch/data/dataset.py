@@ -1,7 +1,8 @@
-"""Host-side filelists and the text-mel dataset.
+"""Host-side filelists, the text-mel dataset and the vocoder's segment dataset.
 
 Counterpart of `efficient_tts_tpu/data/dataset.py`
-(`load_filepaths_and_text`, `load_wav`, `TextMelDataset`). Runs on the host in numpy; the card sees only padded,
+(`load_filepaths_and_text`, `load_wav`, `TextMelDataset`,
+`MelAudioSegmentDataset`). Runs on the host in numpy; the card sees only padded,
 bucketed batches. The contracts are the JAX package's:
   * filelist lines are `wavpath|text`, shuffled once with seed 1234;
   * wavs are re-based onto `wav_path` by basename, PCM16 scaled by 1/32768;
@@ -9,7 +10,9 @@ bucketed batches. The contracts are the JAX package's:
     (`native/`) when it builds, else by `dsp/mel.py:mel_spectrogram_np`;
   * phone mode maps whitespace-separated phones through the vocab file;
     char mode runs `text_to_sequence` with the cleaners.
-The vocoder's segment dataset is not ported yet.
+`MelAudioSegmentDataset` crops HiFi-GAN's training segments with JAX's
+`random.Random(seed)` draws and takes their mels in numpy
+(`mel_spectrogram_np`), so its items equal the JAX dataset's.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import random
 import numpy as np
 
 from efficient_tts_tpu_torch import native
-from efficient_tts_tpu_torch.dsp.mel import MelConfig, mel_spectrogram_np
+from efficient_tts_tpu_torch.dsp.mel import MelConfig, loss_mel_config, mel_spectrogram_np
 from efficient_tts_tpu_torch.text import load_phone_vocab, phones_to_sequence, text_to_sequence
 
 log = logging.getLogger(__name__)
@@ -145,3 +148,80 @@ class TextMelDataset:
     def __getitem__(self, index: int) -> tuple:
         audiopath, text = self.items[index][0], self.items[index][1]
         return self.get_text(text), self.get_mel(audiopath)
+
+
+class MelAudioSegmentDataset:
+    """HiFi-GAN's vocoder dataset: (mel [F, n_mels], audio [segment_size],
+    mel_loss [F, n_mels]) of a fixed-size waveform segment.
+
+    The files are shuffled once with `seed`; the audio is PCM scaled by
+    1 / max_wav_value and, unless fine-tuning, peak-normalized to 0.95. With
+    `split` a random segment is cropped (a shorter file is zero-padded) by a
+    `random.Random(seed)` shared across items, as the JAX dataset draws. The
+    generator input is the segment's mel; with `fine_tuning` it is the GTA
+    mel `base_mels_path/<utt>.npy` ([n_mels, T2], from `bin/extract_gta.py`)
+    cropped at the same frame as the audio. The loss target `mel_loss` comes
+    from `loss_mel_config(mel_config, fmax_loss)`, the filterbank the GAN step
+    takes the generated audio's mel with.
+    """
+
+    def __init__(self, files: list, segment_size: int = 8192, sampling_rate: int = 22050,
+                 mel_config: MelConfig = MelConfig(), fmax_loss: float | None = None,
+                 max_wav_value: float = 32768.0, seed: int = 1234, split: bool = True, shuffle: bool = True,
+                 fine_tuning: bool = False, base_mels_path: str | None = None):
+        self.files = list(files)
+        if shuffle:
+            random.Random(seed).shuffle(self.files)
+        self.segment_size = segment_size
+        self.sampling_rate = sampling_rate
+        self.mel_config = mel_config
+        self.loss_config = loss_mel_config(mel_config, fmax_loss)
+        self.max_wav_value = max_wav_value
+        self.split = split
+        self.fine_tuning = fine_tuning
+        self.base_mels_path = base_mels_path
+        if fine_tuning and not base_mels_path:
+            raise ValueError("fine_tuning requires base_mels_path (GTA mels)")
+        self._rng = random.Random(seed)
+        # with split, an item is a new random crop each time: the loader's
+        # whole-corpus-batch cache would freeze every crop at its first place
+        self.deterministic_items = not split
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _load_audio(self, index: int) -> np.ndarray:
+        audio, sr = load_wav(self.files[index])
+        if sr != self.sampling_rate:
+            raise ValueError(f"{self.files[index]}: {sr} != {self.sampling_rate}")
+        audio = audio.astype(np.float32) / self.max_wav_value
+        if not self.fine_tuning:
+            peak = np.abs(audio).max()
+            if peak > 0:
+                audio = audio / peak * 0.95
+        return audio
+
+    def __getitem__(self, index: int) -> tuple:
+        audio = self._load_audio(index)
+        hop, seg = self.mel_config.hop_size, self.segment_size
+        if self.fine_tuning:
+            base = os.path.splitext(os.path.basename(self.files[index]))[0]
+            mel = np.load(os.path.join(self.base_mels_path, base + ".npy")).T  # [T2, n_mels]
+            if self.split:
+                frames = -(-seg // hop)
+                if len(audio) >= seg and mel.shape[0] > frames:
+                    start = self._rng.randint(0, mel.shape[0] - frames - 1)
+                    mel = mel[start: start + frames]
+                    audio = audio[start * hop: (start + frames) * hop]
+                else:
+                    mel = np.pad(mel, ((0, max(0, frames - mel.shape[0])), (0, 0)))[:frames]
+                    audio = np.pad(audio, (0, max(0, seg - len(audio))))[:seg]
+        else:
+            if self.split:
+                if len(audio) >= seg:
+                    start = self._rng.randint(0, len(audio) - seg)
+                    audio = audio[start: start + seg]
+                else:
+                    audio = np.pad(audio, (0, seg - len(audio)))
+            mel = mel_spectrogram_np(audio, self.mel_config).T
+        return mel, audio, mel_spectrogram_np(audio, self.loss_config).T

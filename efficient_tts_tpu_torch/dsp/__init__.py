@@ -1,3 +1,3 @@
-"""Host DSP: the mel filterbank, the Hann window and the numpy log-mel
-(counterparts of `efficient_tts_tpu/dsp/`). The on-device mel of HiFi-GAN
-training is not ported yet."""
+"""DSP: the mel filterbank, the Hann window, the host log-mel in numpy and
+the log-mel on tensors for the vocoder's GAN step (counterparts of
+`efficient_tts_tpu/dsp/`)."""

@@ -1,9 +1,11 @@
-"""HiFi-GAN's log-mel spectrogram on the host, in numpy.
+"""HiFi-GAN's log-mel spectrogram: on the host in numpy, and on tensors.
 
-Counterpart of the host half of `efficient_tts_tpu/dsp/mel.py`
-(`MelConfig`, `loss_mel_config`, `num_frames`, `mel_spectrogram_np`),
-copied. The data pipeline computes its mels here or in the native library
-(`native/`), never on the card:
+Counterpart of `efficient_tts_tpu/dsp/mel.py` (`MelConfig`,
+`loss_mel_config`, `num_frames`, `mel_spectrogram_np`, and the jitted
+`stft_magnitude` / `mel_spectrogram`). The data pipeline computes its mels
+on the host, here or in the native library (`native/`); the vocoder's GAN
+step takes the mel of the generated audio on the card with
+`mel_spectrogram`, in f32 with autograd:
 
   1. reflect-pad the waveform by (n_fft - hop) / 2 on both sides;
   2. frames of n_fft every hop (center=False), periodic Hann window, rFFT;
@@ -18,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from efficient_tts_tpu_torch.dsp.filters import hann_window, mel_filterbank
 
@@ -86,3 +90,27 @@ def mel_spectrogram_np(y: np.ndarray, cfg: MelConfig = MelConfig()) -> np.ndarra
     mel = basis @ np.swapaxes(mag, -1, -2).astype(np.float32)
     out = np.log(np.clip(mel, cfg.clip_val, None)).astype(np.float32)
     return out[0] if squeeze else out
+
+
+def _frames(y: torch.Tensor, pad: int, frame_length: int, hop: int) -> torch.Tensor:
+    """[B, T] -> reflect-padded by `pad` each side -> [B, F, frame_length]."""
+    y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    return y.unfold(-1, frame_length, hop)
+
+
+def stft_magnitude(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """[B, T] f32 waveform -> [B, n_bins, F] magnitude: reflect pad of
+    (n_fft - hop) / 2, frames with center=False, the padded Hann window, an
+    f32 rFFT, sqrt(re^2 + im^2 + mag_eps)."""
+    win = torch.from_numpy(padded_window(cfg).astype(np.float32)).to(y.device)
+    spec = torch.fft.rfft(_frames(y, cfg.pad, cfg.n_fft, cfg.hop_size) * win, n=cfg.n_fft, dim=-1)
+    return torch.sqrt(spec.real**2 + spec.imag**2 + cfg.mag_eps).transpose(-1, -2)
+
+
+def mel_spectrogram(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """[B, T] f32 waveform -> [B, num_mels, F] log-mel: the filterbank product
+    in f32 (call it under `utils/precision.py:full_f32` on the card, as the
+    JAX package computes it at Precision.HIGHEST), then log(clamp(., clip_val))."""
+    basis = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.fmin, cfg.fmax)
+                             .astype(np.float32)).to(y.device)
+    return torch.log(torch.clamp(basis @ stft_magnitude(y, cfg), min=cfg.clip_val))

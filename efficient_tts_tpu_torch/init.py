@@ -1,12 +1,14 @@
 """Seeded random parameters, as numpy trees in the JAX package's layout.
 
 Same keys, shapes and distributions as `efficient_tts_tpu/models/
-efficient_tts.py:init`, `models/efficient_tts_transformer.py:init` and
-`models/hifigan.py:init_generator` (torch-style
+efficient_tts.py:init`, `models/efficient_tts_transformer.py:init`,
+`models/hifigan.py:init_generator`, `init_mpd` and `init_msd`, and the GAN
+state of `train/hifigan_train_step.py:init_gan_state` (torch-style
 kaiming-uniform convs and linears, N(0, 1) embedding, N(0, 0.01) HiFi-GAN
-upsample and resblock convs, weight norm as {v, g, b} with g = ||v||), drawn
-from numpy rather than `jax.random`, so the numbers differ. Feed the result
-to `compat.py`.
+upsample and resblock convs, weight norm as {v, g, b} with g = ||v||,
+spectral norm as {w_orig, u, v, b} with unit N(0, 1) u and v), drawn from
+numpy rather than `jax.random`, so the numbers differ. Feed the result to
+`compat.py`.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+from efficient_tts_tpu_torch.models.hifigan_train import MPD_PERIODS, SCALE_SPECS
 
 
 def _uniform(rng, shape, bound):
@@ -43,6 +46,18 @@ def _conv(rng, cin, cout, k, init="torch", transpose=False):
     w = _kaiming(rng, shape, fan_in) if init == "torch" else (
         0.01 * rng.standard_normal(shape)).astype(np.float32)
     return {"w": w, "b": _bias(rng, cout, fan_in)}
+
+
+def _conv2d(rng, cin, cout, kh, kw):
+    fan_in = cin * kh * kw
+    return {"w": _kaiming(rng, (kh, kw, cin, cout), fan_in), "b": _bias(rng, cout, fan_in)}
+
+
+def _spectral_norm(rng, p):
+    k, cin, cout = p["w"].shape
+    u, v = rng.standard_normal(cout), rng.standard_normal(k * cin)
+    return {"w_orig": p["w"], "u": (u / np.linalg.norm(u)).astype(np.float32),
+            "v": (v / np.linalg.norm(v)).astype(np.float32), "b": p["b"]}
 
 
 def _weight_norm(p, preserved_axis=-1):
@@ -142,3 +157,34 @@ def init_generator(seed: int, cfg: HiFiGANConfig) -> dict:
             })
     params["conv_post"] = _weight_norm(_conv(rng, ch, 1, 7))
     return params
+
+
+def init_mpd(rng) -> dict:
+    """The five period discriminators (`hifigan.py:init_mpd`)."""
+    chans = ((1, 32), (32, 128), (128, 512), (512, 1024), (1024, 1024))
+    return {"discriminators": [
+        {"convs": [_weight_norm(_conv2d(rng, ic, oc, 5, 1)) for ic, oc in chans],
+         "conv_post": _weight_norm(_conv2d(rng, 1024, 1, 3, 1))} for _ in MPD_PERIODS]}
+
+
+def init_msd(rng) -> dict:
+    """The three scale discriminators, the first spectral-normed (`init_msd`)."""
+    discs = []
+    for i in range(3):
+        norm = (lambda p: _spectral_norm(rng, p)) if i == 0 else _weight_norm
+        discs.append({"convs": [norm(_conv(rng, ic // g, oc, k)) for ic, oc, k, _, g, _ in SCALE_SPECS],
+                      "conv_post": norm(_conv(rng, 1024, 1, 3))})
+    return {"discriminators": discs}
+
+
+def init_gan_state(seed: int, cfg: HiFiGANConfig, ema: bool = False) -> dict:
+    """{"gen": {"params"}, "disc": {"params": {"mpd", "msd"}}, "step": 0[,
+    "ema"]}, the parameters of the JAX package's GAN state (no optimizer
+    state: the bridge starts the moments at zero)."""
+    rng = np.random.default_rng(seed)
+    gen = init_generator(int(rng.integers(2**31)), cfg)
+    state = {"gen": {"params": gen}, "disc": {"params": {"mpd": init_mpd(rng), "msd": init_msd(rng)}},
+             "step": 0}
+    if ema:
+        state["ema"] = gen
+    return state

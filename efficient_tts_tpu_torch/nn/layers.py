@@ -9,8 +9,16 @@ cast to that dtype.
 
 Parameters are built frozen (`requires_grad=False`); the weight bridge
 makes a model trainable on request (`compat.py`, `trainable=True`).
-`WNConv1d` keeps weight norm trainable, as {v, g}, folded into the conv
-weight on each forward; `fold` gives the plain `Conv1d` of inference.
+`WNConv1d`, `WNConvTranspose1d` and `WNConv2d` keep weight norm trainable,
+as {v, g}, folded into the weight on each forward: g keeps the preserved
+axis (the output channels of a conv, the input channels of a transposed
+conv) and size 1 elsewhere, as the JAX package's `weight_norm_init` keepdims
+shapes do, and the norm runs over the axes of size 1. `fold` gives the plain
+layer of inference. `SNConv1d` is the spectral-normed conv of HiFi-GAN's
+first scale discriminator: `w_orig` trainable, the power iteration's `u` and
+`v` buffers advanced by an explicit `power_iteration` call, not by the
+forward. Activations are channels-last for every layer: [B, T, C], and
+[B, H, W, C] for the 2-D conv.
 Dropout takes an explicit generator, as JAX's takes a key: a CPU
 `torch.Generator` is the host-side key, `split_generator` its
 `jax.random.split`, and each dropout call seeds a generator on the
@@ -61,12 +69,29 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w.to(x.dtype)) + b.to(x.dtype)
 
 
-def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1) -> torch.Tensor:
-    """[B, T, Cin] -> [B, T, Cout]; w [Cout, Cin, k]. 'SAME' padding for odd
-    k: (k-1)//2 * dilation on both sides."""
-    padding = (w.shape[-1] - 1) // 2 * dilation
-    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, padding=padding, dilation=dilation)
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1, stride: int = 1,
+           padding: int | None = None, groups: int = 1) -> torch.Tensor:
+    """[B, T, Cin] -> [B, T', Cout]; w [Cout, Cin / groups, k]. `padding`
+    None is 'SAME' for odd k: (k-1)//2 * dilation on both sides."""
+    if padding is None:
+        padding = (w.shape[-1] - 1) // 2 * dilation
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, stride=stride, padding=padding, dilation=dilation,
+                 groups=groups)
     return y.transpose(1, 2) + b.to(x.dtype)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """[B, H, W, Cin] -> [B, H', W', Cout]; w [Cout, Cin, kh, kw], symmetric
+    padding (`efficient_tts_tpu/nn/layers.py:conv2d`, NHWC)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, stride=tuple(stride), padding=tuple(padding))
+    return y.permute(0, 2, 3, 1) + b.to(x.dtype)
+
+
+def avg_pool1d(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:
+    """torch AvgPool1d with count_include_pad=True on [B, T, C]: the window's
+    sum over `window`, zero padding counted (`nn/layers.py:avg_pool1d`)."""
+    y = F.avg_pool1d(x.transpose(1, 2), window, stride, padding, count_include_pad=True)
+    return y.transpose(1, 2)
 
 
 def conv_transpose1d(
@@ -114,37 +139,122 @@ class Conv1d(nn.Module):
         return conv1d(x, self.weight, self.bias, self.dilation)
 
 
-class WNConv1d(nn.Module):
-    """A weight-normed conv: v [out, in, k], g [out, 1, 1] and the bias; the
-    forward convolves with w = g * v / ||v||, the norm over the axes where g
-    has size 1 (in and k), eps 0 (`efficient_tts_tpu/nn/layers.py:
-    weight_norm_kernel`)."""
+class _WeightNormed(nn.Module):
+    """v, g and the bias of a weight-normed layer; `weight()` is g * v / ||v||,
+    the norm over the axes where g has size 1, eps 0, in JAX's order
+    (`efficient_tts_tpu/nn/layers.py:weight_norm_kernel`)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, dilation: int = 1):
+    def __init__(self, v_shape, g_shape, out_ch: int):
         super().__init__()
-        self.v = frozen_param((out_ch, in_ch, kernel_size))
-        self.g = frozen_param((out_ch, 1, 1))
+        self.v = frozen_param(v_shape)
+        self.g = frozen_param(g_shape)
         self.bias = frozen_param((out_ch,))
-        self.dilation = dilation
 
     def weight(self) -> torch.Tensor:
         axes = tuple(i for i in range(self.v.dim()) if self.g.shape[i] == 1)
         return self.g * self.v / torch.sqrt(torch.sum(self.v * self.v, dim=axes, keepdim=True))
 
+    @torch.no_grad()
+    def _folded(self, plain: nn.Module) -> nn.Module:
+        """`plain` with this layer's weights, folded as `fold_weight_norm` folds
+        the JAX tree (f64 on the host), so a folded model equals one loaded
+        folded bit for bit."""
+        plain = plain.to(self.v.device)
+        plain.weight.copy_(torch.from_numpy(weight_norm_kernel(self.v.cpu().numpy(), self.g.cpu().numpy())))
+        plain.bias.copy_(self.bias)
+        return plain
+
+
+class WNConv1d(_WeightNormed):
+    """A weight-normed conv: v [out, in / groups, k], g [out, 1, 1] and the
+    bias; `padding` None is 'SAME'."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, dilation: int = 1, stride: int = 1,
+                 groups: int = 1, padding: int | None = None):
+        super().__init__((out_ch, in_ch // groups, kernel_size), (out_ch, 1, 1), out_ch)
+        self.dilation, self.stride, self.groups, self.padding = dilation, stride, groups, padding
+
     def forward(self, x):
-        return conv1d(x, self.weight(), self.bias, self.dilation)
+        return conv1d(x, self.weight(), self.bias, self.dilation, self.stride, self.padding, self.groups)
+
+    def fold(self) -> Conv1d:
+        if (self.stride, self.groups, self.padding) != (1, 1, None):
+            raise ValueError("only a 'SAME', stride-1, ungrouped conv folds into a Conv1d")
+        out_ch, in_ch, k = self.v.shape
+        return self._folded(Conv1d(in_ch, out_ch, k, self.dilation))
+
+
+class WNConvTranspose1d(_WeightNormed):
+    """A weight-normed transposed conv: v [in, out, k] and g [in, 1, 1], the
+    norm per *input* channel as torch's `weight_norm(dim=0)` takes it for a
+    ConvTranspose1d (`efficient_tts_tpu/models/hifigan.py:101`,
+    `preserved_axis=1` in the WIO layout)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int, padding: int):
+        super().__init__((in_ch, out_ch, kernel_size), (in_ch, 1, 1), out_ch)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return conv_transpose1d(x, self.weight(), self.bias, self.stride, self.padding)
+
+    def fold(self) -> "ConvTranspose1d":
+        in_ch, out_ch, k = self.v.shape
+        return self._folded(ConvTranspose1d(in_ch, out_ch, k, self.stride, self.padding))
+
+
+class WNConv2d(_WeightNormed):
+    """A weight-normed 2-D conv on [B, H, W, C]: v [out, in, kh, kw] and g
+    [out, 1, 1, 1] (the JAX package's HWIO with g [1, 1, 1, out])."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=(1, 1), padding=(0, 0)):
+        super().__init__((out_ch, in_ch, *kernel_size), (out_ch, 1, 1, 1), out_ch)
+        self.stride, self.padding = tuple(stride), tuple(padding)
+
+    def forward(self, x):
+        return conv2d(x, self.weight(), self.bias, self.stride, self.padding)
+
+
+class SNConv1d(nn.Module):
+    """A spectral-normed conv (`efficient_tts_tpu/models/hifigan.py:764-822`):
+    w_orig [out, in / groups, k] trainable, the bias, and the buffers u [out]
+    and v [k * in / groups]. The forward convolves with w_orig / sigma, sigma =
+    u . (W v) for the [out, k * in / groups] matrix W of `matrix()` (the JAX
+    package's `_sn_matrix` column order, tap-major), u and v held constant: the
+    gradient reaches w_orig through the numerator and sigma alike.
+    `power_iteration` advances u and v once, outside autograd; torch's
+    `spectral_norm` would advance them on every training forward instead."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, groups: int = 1,
+                 padding: int = 0):
+        super().__init__()
+        self.w_orig = frozen_param((out_ch, in_ch // groups, kernel_size))
+        self.bias = frozen_param((out_ch,))
+        self.register_buffer("u", torch.zeros(out_ch))
+        self.register_buffer("v", torch.zeros(kernel_size * (in_ch // groups)))
+        self.stride, self.groups, self.padding = stride, groups, padding
+
+    def matrix(self) -> torch.Tensor:
+        return self.w_orig.permute(0, 2, 1).reshape(self.w_orig.shape[0], -1)
+
+    def sigma(self) -> torch.Tensor:
+        return torch.dot(self.u, self.matrix() @ self.v)
+
+    def weight(self) -> torch.Tensor:
+        return self.w_orig / self.sigma()
 
     @torch.no_grad()
-    def fold(self) -> Conv1d:
-        """The plain conv of the same weights, folded as `fold_weight_norm`
-        folds the JAX tree (f64 on the host), so a folded model equals one
-        loaded folded bit for bit."""
-        out_ch, in_ch, k = self.v.shape
-        conv = Conv1d(in_ch, out_ch, k, self.dilation).to(self.v.device)
-        w = weight_norm_kernel(self.v.cpu().numpy(), self.g.cpu().numpy())
-        conv.weight.copy_(torch.from_numpy(w))
-        conv.bias.copy_(self.bias)
-        return conv
+    def power_iteration(self, eps: float = 1e-12) -> None:
+        """One torch-style iteration, v then u (`spectral_power_iteration`)."""
+        w = self.matrix()
+        v = w.T @ self.u
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
+        u = w @ v
+        u = u / torch.clamp(torch.linalg.vector_norm(u), min=eps)
+        self.u.copy_(u)
+        self.v.copy_(v)
+
+    def forward(self, x):
+        return conv1d(x, self.weight(), self.bias, 1, self.stride, self.padding, self.groups)
 
 
 class ConvTranspose1d(nn.Module):

@@ -1,10 +1,11 @@
 """Checkpoints of the train state {params, opt_state, step} with `torch.save`.
 
 Counterpart of `efficient_tts_tpu/train/checkpoint.py`: `save_checkpoint`
-writes the model's state dict, the optimizer state and the step to
-`outdir/checkpoint-{step}steps`; `load_checkpoint` restores everything
-(resume) or the parameters only (`load_only_params`, the reference's
---pretrain). A save is written to a temporary name and renamed, so a
+writes a train state to `outdir/checkpoint-{step}steps`, each module in it
+as its state dict (an acoustic model's {params, opt_state, step}; the
+vocoder's {gen: {params, opt_state}, disc: {params, opt_state}, step[,
+ema]}); `load_checkpoint` restores everything (resume) or the modules only
+(`load_only_params`, the reference's --pretrain). A save is written to a temporary name and renamed, so a
 checkpoint on disk is always whole. Names that do not match
 `checkpoint-{step}steps` (the divergence guard's `diverged-state-{step}`)
 are invisible to `latest_checkpoint` and `prune_checkpoints`.
@@ -19,27 +20,58 @@ import torch
 _PREFIX, _SUFFIX = "checkpoint-", "steps"
 
 
+def _saved(state):
+    if isinstance(state, torch.nn.Module):
+        return state.state_dict()
+    if isinstance(state, dict):
+        return {k: _saved(v) for k, v in state.items()}
+    return state
+
+
 def save_checkpoint(outdir: str, state: dict, name: str | None = None) -> str:
-    step = state["step"]
+    step = int(state["step"])
     os.makedirs(outdir, exist_ok=True)
     path = os.path.join(os.path.abspath(outdir), name or f"{_PREFIX}{step}{_SUFFIX}")
     tmp = f"{path}.tmp{os.getpid()}"
-    torch.save({"params": state["params"].state_dict(), "opt_state": state["opt_state"], "step": int(step)}, tmp)
+    torch.save({**_saved(state), "step": step}, tmp)
     os.replace(tmp, path)
     return path
 
 
-def load_checkpoint(path: str, state: dict, load_only_params: bool = False) -> dict:
-    """Restore into `state` (its model and device) and return it; with
-    `load_only_params` the optimizer state and step stay as they are."""
-    model = state["params"]
-    device = next(model.parameters()).device
-    ckpt = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
-    model.load_state_dict(ckpt["params"])
-    if not load_only_params:
-        state["opt_state"] = ckpt["opt_state"]
-        state["step"] = int(ckpt["step"])
+def read_checkpoint(path: str, device="cpu") -> dict:
+    """A checkpoint's contents, tensors on `device`."""
+    return torch.load(os.path.abspath(path), map_location=device, weights_only=True)
+
+
+def restore(state: dict, saved: dict, load_only_params: bool = False) -> dict:
+    """Load `saved` into `state` key by key: modules by their state dict,
+    optimizer states and steps by value (unless `load_only_params`)."""
+    for key, value in state.items():
+        if isinstance(value, torch.nn.Module):
+            value.load_state_dict(saved[key])
+        elif isinstance(value, dict) and key != "opt_state":
+            restore(value, saved[key], load_only_params)
+        elif not load_only_params:
+            state[key] = int(saved[key]) if key == "step" else saved[key]
     return state
+
+
+def state_device(state) -> torch.device:
+    """The device of the first module of a train state."""
+    for value in state.values():
+        if isinstance(value, torch.nn.Module):
+            return next(value.parameters()).device
+        if isinstance(value, dict):
+            dev = state_device(value)
+            if dev is not None:
+                return dev
+    return None
+
+
+def load_checkpoint(path: str, state: dict, load_only_params: bool = False) -> dict:
+    """Restore into `state` (its modules and device) and return it; with
+    `load_only_params` the optimizer states and the step stay as they are."""
+    return restore(state, read_checkpoint(path, state_device(state)), load_only_params)
 
 
 def _steps(outdir: str) -> list[tuple[int, str]]:

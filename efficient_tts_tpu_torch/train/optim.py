@@ -17,6 +17,11 @@ WarmupLR 4000). The chain, in optax's order:
   4. scale_by_learning_rate: times -lr(count), the schedule reading the
      0-based count.
 
+`HiFiGANAdam` is the vocoder's (`efficient_tts_tpu/train/optim.py:
+hifigan_adam`): optax's scale_by_adam (b1 0.8, b2 0.99, eps 1e-8, eps_root
+0) then scale_by_learning_rate with the per-epoch exponential decay, with
+no clipping and no weight decay.
+
 The bias corrections and the learning rate are host floats computed in
 f32 as optax computes them. `update` is pure, as optax's is; the train
 step adds the updates to the parameters in place.
@@ -27,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from efficient_tts_tpu_torch.train.schedule import warmup_lr
+from efficient_tts_tpu_torch.train.schedule import exponential_decay_per_epoch, warmup_lr
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -80,6 +85,16 @@ class AdamWarmup:
             updates[n] = step_size * ((mu / bc1) / (torch.sqrt(nu_hat) + self.eps))
             new["mu"][n], new["nu"][n] = mu, nu
         return updates, new
+
+
+class HiFiGANAdam(AdamWarmup):
+    """Adam (b1, b2) = (0.8, 0.99), eps 1e-8, at lr * lr_decay ** epoch, an
+    epoch being `steps_per_epoch` updates (HiFi-GAN's config.json)."""
+
+    def __init__(self, lr: float = 2e-4, betas=(0.8, 0.99), lr_decay: float = 0.999, steps_per_epoch: int = 1000):
+        super().__init__(lr=lr, betas=betas, eps=1e-8, weight_decay=0.0, amsgrad=False, grad_clip_norm=None,
+                         warmup_steps=None)
+        self.schedule = exponential_decay_per_epoch(lr, lr_decay, steps_per_epoch)
 
 
 def optimizer_from_dict(config: dict) -> AdamWarmup:

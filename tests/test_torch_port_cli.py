@@ -111,7 +111,7 @@ def test_load_vocoder_reads_reference_generator_files(experiment, tmp_path, fold
 
 
 def test_load_vocoder_refuses_what_it_cannot_read(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="orbax checkpoint directory of the JAX vocoder trainer"):
         inference._load_vocoder(str(tmp_path), VOC_CFG, "cpu")
     with pytest.raises(ValueError, match="unsupported"):
         inference._load_vocoder(str(tmp_path / "missing"), VOC_CFG, "cpu")

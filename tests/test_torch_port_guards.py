@@ -46,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "bench.mrf_fused", "bench.probe_int8", "serve", "bin.serve", "bin.inference",
                  "bench.serving_load", "text", "text.cleaners", "text.mandarin", "utils.config",
                  "data.dataset", "ops.launch_counts", "data.loader", "data.collate", "dsp", "dsp.mel",
-                 "dsp.filters", "native", "bin.train", "bench.corpus"):
+                 "dsp.filters", "native", "bin.train", "bench.corpus", "losses.gan", "losses.stft_loss",
+                 "train.hifigan_train_step", "train.hifigan_trainer", "bin.train_vocoder", "bin.extract_gta",
+                 "models.hifigan_train"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -159,3 +161,40 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path
     # a model on another device than the step's is refused, not moved
     with pytest.raises(ValueError, match="holds tensors on meta"):
         make_train_step(TR_CFG, tx, device="cpu")(create_state(model.to("meta"), tx), batch)
+
+
+def test_vocoder_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """The GAN step, eval step, state bridge and init, trainer, vocoder CLI
+    and GTA extraction run on the card unless the caller asks for the CPU,
+    and never move there on their own."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.bin import extract_gta, train_vocoder
+    from efficient_tts_tpu_torch.train.hifigan_train_step import (init_gan_state, make_gan_eval_step,
+                                                                  make_gan_train_step)
+    from efficient_tts_tpu_torch.train.hifigan_trainer import HiFiGANTrainer
+    from efficient_tts_tpu_torch.train.optim import HiFiGANAdam
+
+    tx = HiFiGANAdam()
+    tree = init.init_gan_state(0, VOC_CFG)
+    scp = tmp_path / "wavs.scp"
+    scp.write_text("")
+    for call in (lambda: make_gan_train_step(VOC_CFG, tx, tx), lambda: make_gan_eval_step(VOC_CFG),
+                 lambda: compat.gan_state_from_jax(tree, VOC_CFG, tx, tx),
+                 lambda: compat.generator_from_jax(tree["gen"]["params"], VOC_CFG),
+                 lambda: init_gan_state(0, VOC_CFG, tx, tx),
+                 lambda: HiFiGANTrainer(None, None, iter(()), outdir=str(tmp_path / "exp")),
+                 lambda: train_vocoder.main(["--wav_scp", str(scp), "--outdir", str(tmp_path / "voc")]),
+                 lambda: extract_gta.main(["--fid_scp", str(scp), "--checkpoint", str(tmp_path / "checkpoint"),
+                                           "--outdir", str(tmp_path / "gta")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    state = compat.gan_state_from_jax(tree, VOC_CFG, tx, tx, device="cpu")
+    assert state["gen"]["params"].conv_pre.v.device.type == "cpu" and "ema" not in state
+    # a state on another device than the step's is refused, not moved
+    step = make_gan_train_step(VOC_CFG, tx, tx, device="cpu")
+    state["disc"]["params"].to("meta")
+    batch = {"mel": np.zeros((1, 8, 80), np.float32), "audio": np.zeros((1, 2048), np.float32),
+             "mel_loss": np.zeros((1, 8, 80), np.float32)}
+    with pytest.raises(ValueError, match="holds tensors on meta"):
+        step(state, batch)
