@@ -156,7 +156,27 @@ Phases, each of which raises on failure:
         both checkpoints in bf16 (18 bf16 MRF launches a stage); then the
         GAN step at B=16, segment 8192, f32 and bf16 (CUDA events, median
         of 10 after 2 warmup calls, its profile, launches and peak memory)
-        beside the CLI run's step wall and data wait;
+        beside the CLI run's step wall and data wait (4n's CLI runs take the
+        host data path, `--device_corpus off`);
+     o. the vocoder corpus held on the card (`data/device_corpus.py`) on
+        4m's corpus at V1, B=16, segment 8192: its bytes against
+        `corpus_nbytes`, the load and upload times, the crops' step
+        determinism and bounds, a device batch against `batch_from_positions`
+        on the CPU from the same positions (audio bit-equal, mels within
+        `DEVICE_BATCH_MEL_TOL`), the batch's time; `bin.train_vocoder
+        --device_corpus on`, f32 with an EMA, 6 steps, an eval at 6 (72 f32
+        MRF launches), checkpoints at 4 and 6, peak memory, then a resume from
+        4 whose crops equal the uninterrupted run's; `on` with `--fine_tuning`
+        raises; 6 bf16 steps under `auto`, which takes the device path; each
+        run's step wall and data wait beside 4n's host-path runs; the
+        device-path GAN step timed and profiled in f32 and bf16; the
+        EFTS-Transformer at its yaml's widths under AdamW + CosineAnnealingLR:
+        the first update on the card against the CPU's (B=2), then
+        `bin.train` with that optimizer, 2 steps and a resume to 3 (10
+        forward, dkv and dq flash launches a step); the DurationModel at the
+        JAX package's defaults with a speaker table: the first step on the
+        card against the CPU's, a 50-step fit whose loss halves, rounded
+        durations from `inference`, one step timed and profiled;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -193,6 +213,8 @@ Phases, each of which raises on failure:
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -308,6 +330,23 @@ CORPUS_TRAIN, CORPUS_DEV, CORPUS_MEL_CACHE_MB = 384, 16, 128
 GAN_CARD_TOL = {"metric_rel": 1e-5, "grad_rel_l2": 1e-4, "leaf_rel_l2": 5e-3, "uv_abs": 1e-5}
 # the vocoder CLI's batch and the GAN step's timed batch (HiFi-GAN V1's segment)
 GAN_B = 16
+# 4o: the device batch on the card against `batch_from_positions` on the CPU
+# from the same crop positions: the audio bit-equal, each mel within 1e-5 of
+# its largest magnitude (the CPU tests' bound on the tensor log-mel against JAX)
+DEVICE_BATCH_MEL_TOL = 1e-5
+# 4o-iii: a non-Adam pairing of the registry for the EFTS-Transformer's yaml
+REGISTRY_OPTIMIZER = {"optimizer_type": "AdamW", "scheduler_type": "CosineAnnealingLR",
+                      "scheduler_params": {"T_max": 1000}}
+# 4o-iii/iv: a first update on the card against the CPU's: each gradient leaf
+# (from the first moment) within TRAIN_TOL's bounds, and the update, Adam's
+# about -lr * sign(g), within 1e-3 relative where the CPU's gradient is at
+# least 5% of its leaf's largest (nearer 0 the sign may flip under rounding),
+# in leaves whose gradient is at least 1e-3 of the whole's norm (an attention
+# key's bias has a true gradient of 0: the softmax is shift-invariant)
+UPDATE_TOL = {"grad_leaf_rel_l2": 2e-2, "grad_abs_of_global": 1e-5, "update_rel": 1e-3, "above_of_leaf_max": 5e-2,
+              "leaf_above_of_global": 1e-3}
+# 4o-iv: the DurationModel's batch, its length and the fit's steps
+DUR_B, DUR_T, DUR_STEPS = 16, 256, 50
 
 
 # the card's name and power limit, stamped on every phase line once known
@@ -334,19 +373,30 @@ def within(stats, tol):
 
 def device_profile(torch, fn, n=3):
     """Device time by kernel name per run of `fn`, from torch.profiler's
-    CUDA activity; an empty dict when the profiler saw no device time."""
+    CUDA activity; an empty dict when the profiler saw no device time. The
+    first records of a profiled window can be lost (1-3 kernels of a
+    window in a fresh process, about 30 after many windows, among them the
+    training step's first flash forward), so a warm-up step of the
+    profiler's schedule, one call of `fn`, takes that loss before the n
+    calls it keeps."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     kernels = {}
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # the schedule's step annotation spans the whole window on the device
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("ProfilerStep"):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -1335,8 +1385,9 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
 
     # ii. the vocoder CLI: f32 with an EMA and evals on the dev set, a resume, bf16
     voc_out = os.path.join(work, "exp_vocoder")
+    # the host data path (4o runs the device corpus)
     base = [*cpu, "--config", config_path, "--wav_scp", scps["train"], "--batch_size", str(GAN_B),
-            "--log_interval_steps", "1", "--max_keep_checkpoints", "2"]
+            "--log_interval_steps", "1", "--max_keep_checkpoints", "2", "--device_corpus", "off"]
     ema = ["--ema_decay", "0.999"]
     mrf.reset_launches()
     t0 = time.perf_counter()
@@ -1365,6 +1416,7 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
         raise AssertionError(f"the vocoder CLI: step {voc_tr.state['step']}, metrics {metrics_log[-1:]}, evals "
                              f"{voc_tr.eval_log}, checkpoints {saved}, launches {eval_launches}")
     eval_batch = voc_tr.eval_batches[0]
+    host_cli = {"f32": [{k: r[k] for k in ("step", "wall_s", "data_wait_s")} for r in voc_tr.step_times]}
     del voc_tr
     resumed = train_vocoder.main([*base, *ema, "--outdir", voc_out, "--resume",
                                   os.path.join(voc_out, "checkpoint-10steps"), "--train_max_steps", "12",
@@ -1380,6 +1432,7 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
     bf = train_vocoder.main([*base, "--outdir", os.path.join(work, "exp_vocoder_bf16"), "--compute_dtype",
                              "bfloat16", "--train_max_steps", "3", "--save_interval_steps", "3"])
     bf_log = list(bf.metrics_log)
+    host_cli["bf16"] = [{k: r[k] for k in ("step", "wall_s", "data_wait_s")} for r in bf.step_times]
     log({"phase": "main_path", "what": "bin.train_vocoder --compute_dtype bfloat16", "steps": bf.state["step"],
          "g_loss": [m["g_loss"] for m in bf_log], "d_loss": [m["d_loss"] for m in bf_log],
          "step_wall_ms": [1e3 * r["wall_s"] for r in bf.step_times]})
@@ -1479,6 +1532,352 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
                           for side in ("gen", "disc")},
              "cli_f32": cli_split, **summary})
         del state, step
+    return {"voc_cfg": voc_cfg, "config": config_path, "wavs": wavs, "scps": scps, "host_cli": host_cli,
+            "work": work}
+
+
+def step_walls(step_times):
+    """(wall ms, data wait ms) of each logged step of a CLI run."""
+    return [1e3 * r["wall_s"] for r in step_times], [1e3 * r["data_wait_s"] for r in step_times]
+
+
+def first_update_vs_cpu(torch, runs, moment, beta1):
+    """4o-iii/iv: the card's first update against the CPU's. `runs` maps the
+    device to (parameters before, after, optimizer state), each {name:
+    tensor}; the gradients are read from the first moment, `moment` (beta1 g
+    after one step). Returns the gradients' worst leaf by relative L2 and
+    the updates' worst relative error where the CPU's gradient is at least
+    UPDATE_TOL["above_of_leaf_max"] of its leaf's largest, in the leaves
+    whose gradient is at least UPDATE_TOL["leaf_above_of_global"] of the
+    whole's norm."""
+    (dev_b, dev_a, dev_s), (cpu_b, cpu_a, cpu_s) = runs["card"], runs["cpu"]
+    g_dev, g_cpu = (moment(s) for s in (dev_s, cpu_s))
+    g_norm = math.sqrt(sum(float(g.double().square().sum()) for g in g_cpu.values())) / (1 - beta1)
+    grad_worst, upd_worst, fails = (0.0, ""), (0.0, ""), []
+    for n, gc in g_cpu.items():
+        gd = g_dev[n].cpu() / (1 - beta1)
+        gc = gc / (1 - beta1)
+        err, ref = float((gd - gc).double().norm()), float(gc.double().norm())
+        if err > UPDATE_TOL["grad_leaf_rel_l2"] * ref + UPDATE_TOL["grad_abs_of_global"] * g_norm:
+            fails.append((n, "gradient", err, ref))
+        if ref <= UPDATE_TOL["leaf_above_of_global"] * g_norm:
+            continue  # a gradient at rounding level (an attention key's bias: the softmax is shift-invariant)
+        grad_worst = max(grad_worst, (err / ref, n))
+        keep = gc.abs() >= UPDATE_TOL["above_of_leaf_max"] * float(gc.abs().max())
+        ud, uc = (dev_a[n].cpu() - dev_b[n].cpu())[keep], (cpu_a[n] - cpu_b[n])[keep]
+        if keep.any():
+            rel = float(((ud - uc).abs() / uc.abs().clamp(min=1e-30)).max())
+            upd_worst = max(upd_worst, (rel, n))
+            if rel > UPDATE_TOL["update_rel"]:
+                fails.append((n, "update", rel))
+    return grad_worst, upd_worst, fails
+
+
+def device_corpus_phase(torch, stages, new_launches, voc, trained, device="cuda"):
+    """4o: the vocoder corpus held on the card (`data/device_corpus.py`) at
+    HiFi-GAN V1, B=16, segment 8192, on 4m's corpus and 4n's files; a
+    registry optimizer through `bin.train`; the DurationModel at the JAX
+    package's default widths. Returns the flash launches of the registry
+    run. `voc` is what 4n returns, `trained` what 4m returns. `device` is
+    the card; "cpu" rehearses the phase's control flow at a small config."""
+    from efficient_tts_tpu_torch.bench import time_ms
+    from efficient_tts_tpu_torch.bin import train_vocoder
+    from efficient_tts_tpu_torch.data import device_corpus as dc
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.train.hifigan_train_step import init_gan_state, make_gan_train_step
+    from efficient_tts_tpu_torch.train.optim import HiFiGANAdam
+
+    dev = torch.device(device)
+    voc_cfg, seg, wavs, scps, work = voc["voc_cfg"], voc["voc_cfg"].segment_size, voc["wavs"], voc["scps"], voc["work"]
+
+    # i. the corpus on the card, its crops and mels against the CPU's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = dc.load_corpus(wavs["train"], segment_size=seg, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes, estimate = corpus["wav"].nbytes, dc.corpus_nbytes(wavs["train"], seg)
+    pinned = corpus["wav"].cpu()
+    pinned = pinned.pin_memory() if dev.type == "cuda" else pinned
+    upload = time_ms(lambda: pinned.to(dev, non_blocking=True), iters=3, warmup=1)
+    del pinned
+    batcher = dc.make_device_batch_fn(GAN_B, segment_size=seg, device=dev)
+    lens = corpus["len"].long()
+    crops_ok = True
+    for s in range(8):
+        idx, start = batcher.crop_positions(corpus["len"], s)
+        again = batcher.crop_positions(corpus["len"], s)
+        crops_ok &= bool(torch.equal(idx, again[0]) and torch.equal(start, again[1])
+                         and ((start >= 0) & (start <= torch.clamp(lens[idx] - seg, min=0))).all())
+    idx, start = batcher.crop_positions(corpus["len"], 3)
+    got = batcher(corpus, 3)
+    ref = dc.make_device_batch_fn(GAN_B, segment_size=seg, device="cpu").batch_from_positions(
+        {k: v.cpu() for k, v in corpus.items()}, idx.cpu(), start.cpu())
+    audio_equal = bool(torch.equal(got["audio"].cpu(), ref["audio"]))
+    mel_err = {k: float((got[k].cpu() - ref[k]).abs().max() / ref[k].abs().max()) for k in ("mel", "mel_loss")}
+    t_batch = time_ms(lambda: batcher(corpus, 5))
+    log({"phase": "main_path", "what": "data.device_corpus", "wavs": len(wavs["train"]),
+         "shape": list(corpus["wav"].shape), "bytes": nbytes, "corpus_nbytes": estimate, "load_s": load_s,
+         "upload_ms": upload["median"], "upload_gb_s": nbytes / upload["median"] / 1e6,
+         "crops_deterministic_in_bounds": crops_ok, "audio_equal_cpu": audio_equal,
+         "mel_err_of_max_vs_cpu": mel_err, "tolerance": DEVICE_BATCH_MEL_TOL, "batch_ms": t_batch["median"],
+         "batch_ms_p25": t_batch["p25"], "batch_ms_p75": t_batch["p75"], "B": GAN_B, "segment": seg})
+    if (nbytes != estimate or not crops_ok or not audio_equal or max(mel_err.values()) > DEVICE_BATCH_MEL_TOL
+            or got["mel"].shape != (GAN_B, seg // voc_cfg.hop_size, voc_cfg.num_mels)):
+        raise AssertionError(f"the device corpus: bytes {nbytes} vs {estimate}, crops {crops_ok}, audio "
+                             f"{audio_equal}, mel {mel_err}")
+    del got, ref
+
+    # ii. bin.train_vocoder on the device path: f32 with an EMA and an eval, a
+    # resume, bf16 under auto; the crops each step drew are recorded
+    recorded = []
+    draw = dc.DeviceBatcher.crop_positions
+
+    def recording(self, corpus_len, step):
+        out = draw(self, corpus_len, step)
+        recorded.append((int(step), out))
+        return out
+
+    out_dir = os.path.join(work, "exp_vocoder_device")
+    base = ["--config", voc["config"], "--wav_scp", scps["train"], "--batch_size", str(GAN_B),
+            "--log_interval_steps", "1", "--max_keep_checkpoints", "2", *(["--use_cpu"] if dev.type == "cpu" else [])]
+    with contextlib.ExitStack() as undo:
+        dc.DeviceBatcher.crop_positions = recording
+        undo.callback(setattr, dc.DeviceBatcher, "crop_positions", draw)
+        mrf.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_vocoder.main([*base, "--ema_decay", "0.999", "--outdir", out_dir, "--dev_wav_scp", scps["dev"],
+                                 "--train_max_steps", "6", "--save_interval_steps", "4", "--eval_interval_steps",
+                                 "6", "--device_corpus", "on"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        eval_launches = new_launches["train_vocoder_device_corpus_eval", "f32"] = dict(mrf.launches)
+        whole = [(s, i.cpu(), st.cpu()) for s, (i, st) in recorded]
+        f32_log, saved = list(tr.metrics_log), sorted(n for n in os.listdir(out_dir) if n.startswith("checkpoint-"))
+        f32_wall, f32_wait = step_walls(tr.step_times)
+        path, evals, ema = tr.data_path, list(tr.eval_log), "ema" in tr.state
+        del tr
+        recorded.clear()
+        resumed = train_vocoder.main([*base, "--ema_decay", "0.999", "--outdir", out_dir, "--resume",
+                                      os.path.join(out_dir, "checkpoint-4steps"), "--train_max_steps", "6",
+                                      "--save_interval_steps", "100", "--device_corpus", "on"])
+        again = [(s, i.cpu(), st.cpu()) for s, (i, st) in recorded]
+        resumed_steps = [r["step"] for r in resumed.step_times]
+        del resumed
+    same_crops = [s for s, _, _ in again] == [4, 5] and all(
+        torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]) for a, b in zip(again, whole[4:6]))
+    log({"phase": "main_path", "what": "bin.train_vocoder --device_corpus on, HiFi-GAN V1", "dtype": "f32",
+         "data_path": path, "steps": len(f32_log), "batch_size": GAN_B, "seconds": cli_s,
+         "g_loss": [m["g_loss"] for m in f32_log], "mel_l1": [m["mel_l1"] for m in f32_log], "evals": evals,
+         "checkpoints": saved, "mrf_launches": keyed(eval_launches), "max_memory_allocated_gb": peak / 2**30,
+         "step_wall_ms": f32_wall, "data_wait_ms": f32_wait,
+         "host_path_step_wall_ms": [1e3 * r["wall_s"] for r in voc["host_cli"]["f32"]],
+         "host_path_data_wait_ms": [1e3 * r["data_wait_s"] for r in voc["host_cli"]["f32"]],
+         "resumed_steps": resumed_steps, "resume_crops_equal_uninterrupted": same_crops})
+    if (path != "device" or len(f32_log) != 6 or not all(math.isfinite(v) for m in f32_log for v in m.values())
+            or [e["step"] for e in evals] != [6] or not ema or saved != ["checkpoint-4steps", "checkpoint-6steps"]
+            or eval_launches != stage_launches(stages, "f32", 1) or resumed_steps != [5, 6] or not same_crops
+            or [s for s, _, _ in whole] != list(range(6))):
+        raise AssertionError(f"the vocoder CLI on the device corpus: path {path}, metrics {f32_log[-1:]}, evals "
+                             f"{evals}, checkpoints {saved}, launches {eval_launches}, resume {resumed_steps}, "
+                             f"crops {same_crops}")
+    try:
+        train_vocoder.main([*base, "--outdir", os.path.join(work, "exp_vocoder_ft_on"), "--device_corpus", "on",
+                            "--fine_tuning", "--base_mels_path", os.path.join(work, "gta")])
+        raise AssertionError("--device_corpus on with --fine_tuning did not raise")
+    except ValueError as e:
+        if "GTA mels" not in str(e):
+            raise
+    bf = train_vocoder.main([*base, "--outdir", os.path.join(work, "exp_vocoder_device_bf16"), "--compute_dtype",
+                             "bfloat16", "--train_max_steps", "6", "--save_interval_steps", "6"])
+    bf_log = list(bf.metrics_log)
+    bf_wall, bf_wait = step_walls(bf.step_times)
+    log({"phase": "main_path", "what": "bin.train_vocoder --device_corpus auto --compute_dtype bfloat16",
+         "data_path": bf.data_path, "steps": len(bf_log), "g_loss": [m["g_loss"] for m in bf_log],
+         "step_wall_ms": bf_wall, "data_wait_ms": bf_wait,
+         "host_path_step_wall_ms": [1e3 * r["wall_s"] for r in voc["host_cli"]["bf16"]],
+         "host_path_data_wait_ms": [1e3 * r["data_wait_s"] for r in voc["host_cli"]["bf16"]],
+         "on_with_fine_tuning": "raised"})
+    if bf.data_path != "device" or len(bf_log) != 6 or not all(math.isfinite(v) for m in bf_log for v in m.values()):
+        raise AssertionError(f"the bf16 vocoder CLI under auto: path {bf.data_path}, {bf_log}")
+    del bf
+
+    # the device-path step (batch built on the card, then the GAN step), timed
+    # as 4n-v times the host path's step on a batch already on the card
+    tx = HiFiGANAdam()
+    for cdt, dname in ((None, "f32"), (torch.bfloat16, "bf16")):
+        state = init_gan_state(0, voc_cfg, tx, tx, ema_decay=0.999, device=dev)
+        step = dc.make_device_gan_train_step(
+            make_gan_train_step(voc_cfg, tx, tx, ema_decay=0.999, compute_dtype=cdt, device=dev), batcher)
+        t_step = time_ms(lambda: step(state, corpus), iters=10)
+        prof = device_profile(torch, lambda: step(state, corpus))
+        summary = profile_summary(prof, t_step["median"], ()) if prof else {"device_busy_ms": "not measured"}
+        log({"phase": "timing", "what": "device_corpus gan_train_step", "model": "hifigan_v1 + mpd + msd",
+             "B": GAN_B, "segment": seg, "dtype": dname, "ms": t_step["median"], "ms_p25": t_step["p25"],
+             "ms_p75": t_step["p75"], "n": t_step["n"], **summary})
+        del state, step
+    del corpus
+
+    # iii. a registry optimizer through bin.train: the EFTS-Transformer's yaml
+    # with AdamW and cosine annealing, 2 steps and a resume to 3
+    reg_flash = registry_optimizer_phase(torch, trained, dev)
+
+    # iv. the DurationModel at the JAX package's default widths
+    duration_model_phase(torch, dev)
+    return reg_flash
+
+
+def registry_optimizer_phase(torch, trained, dev):
+    """4o-iii: the first step of the EFTS-Transformer at its yaml's widths
+    under AdamW + CosineAnnealingLR on the card against the CPU (B=2): the
+    loss and the whole gradient, and the card's update against the CPU's
+    rule and schedule on the card's gradient; then the training CLI with that
+    optimizer: 2 steps, then a resume to 3, its flash launches returned."""
+    from efficient_tts_tpu_torch import compat, init
+    from efficient_tts_tpu_torch.bin import train
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.train.efts_train_step import make_train_step
+    from efficient_tts_tpu_torch.train.optim import optimizer_from_dict
+    from efficient_tts_tpu_torch.train.state import create_state, named_params
+    from efficient_tts_tpu_torch.utils.config import load_config, model_config_from_dict
+
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "efficient_tts_tpu_torch", "configs")
+    yaml_path = os.path.join(configs, "lj_efts_transformer_phnseq.yaml")
+    config = {**load_config(yaml_path), **REGISTRY_OPTIMIZER}
+    cfg = dataclasses.replace(model_config_from_dict(config), dropout_rate=0.0, num_symbols=148)
+    params = init.init_efts_transformer(5, cfg)
+    batch = train_batch(np.random.default_rng(5), cfg.num_symbols, cfg.odim)
+    batch = {k: v[:2] for k, v in batch.items()}
+    runs = {}
+    for key, dname in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = compat.efts_transformer_from_jax(params, cfg, device=dname, trainable=True)
+        tx = optimizer_from_dict(config)
+        state = create_state(model, tx)
+        before = {n: p.detach().clone() for n, p in named_params(model).items()}
+        state, metrics = make_train_step(cfg, tx, device=dname)(state, batch)
+        runs[key] = (before, {n: p.detach().clone() for n, p in named_params(model).items()}, state["opt_state"])
+        runs[key + "_loss"] = float(metrics["loss"])
+        del model, state
+    # the model in the large: the loss and the whole gradient (from the first
+    # moment); the attention's alignment path (text key, mel prenet: sigma
+    # 0.01) moves several percent leafwise at B=2 under the flash kernels' TF32
+    tx_parts = optimizer_from_dict(config).parts  # clip, AdamW at lr 1, the schedule
+    rule, sched = tx_parts[1], tx_parts[2]
+    (before_c, after_c, st_c), (_, _, st_h) = runs["card"], runs["cpu"]
+    g_card = {n: m / (1 - rule.b1) for n, m in st_c[1]["m"].items()}
+    num = sum(float((g_card[n].cpu() - m / (1 - rule.b1)).double().square().sum()) for n, m in st_h[1]["m"].items())
+    den = sum(float((m / (1 - rule.b1)).double().square().sum()) for m in st_h[1]["m"].values())
+    grad_rel = math.sqrt(num / den)
+    # the optimizer: the card step's update against the CPU's registry rule and
+    # schedule on the card's (clipped) gradient, added in f32 on the CPU
+    cpu_params = {n: p.cpu() for n, p in before_c.items()}
+    u, _ = rule.update({n: g.cpu() for n, g in g_card.items()}, rule.init(cpu_params), cpu_params)
+    u, _ = sched.update(u, sched.init(cpu_params), cpu_params)
+    upd_worst = (0.0, "")
+    for n, p in cpu_params.items():
+        err = (after_c[n].cpu() - (p + u[n])).abs()
+        bound = UPDATE_TOL["update_rel"] * u[n].abs() + 2.0**-22 * p.abs() + 1e-12
+        upd_worst = max(upd_worst, (float((err / bound).max()), n))
+    loss_err = abs(runs["card_loss"] - runs["cpu_loss"]) / abs(runs["cpu_loss"])
+    log({"phase": "train_card_vs_cpu", "model": "efts_transformer", "optimizer": REGISTRY_OPTIMIZER, "B": 2,
+         "loss": runs["card_loss"], "loss_cpu": runs["cpu_loss"], "grad_rel_l2": grad_rel,
+         "update_vs_cpu_rule_err_over_bound": upd_worst, "lr_at_step_0": sched.schedule(0),
+         "tolerance": {"loss_rel": TRAIN_TOL["loss_rel"], "grad_rel_l2": UPDATE_TOL["grad_leaf_rel_l2"],
+                       "update": "1e-3 of the update + 2^-22 of the parameter"}})
+    if loss_err > TRAIN_TOL["loss_rel"] or grad_rel > UPDATE_TOL["grad_leaf_rel_l2"] or upd_worst[0] > 1.0:
+        raise AssertionError(f"the registry optimizer's first step on the card disagrees with the CPU: loss "
+                             f"{loss_err}, gradient {grad_rel}, update {upd_worst}")
+    del runs
+
+    corpus = trained["corpus"]
+    sets = [f"dataset_params.wav_path={corpus['wavs']}", "model_params.dropout_rate=0.0", "text_bucket=128",
+            "mel_bucket=128", "dataset_params.use_phnseq=false", "model_params.num_symbols=148",
+            "log_interval_steps=1", *(f"{k}={json.dumps(v)}" for k, v in REGISTRY_OPTIMIZER.items())]
+    out = os.path.join(trained["work"], "exp_tr_registry")
+    args = ["--config", yaml_path, "--train_fid_scp", corpus["train"], "--outdir", out,
+            *[a for o in sets for a in ("--set", o)], *(["--use_cpu"] if dev.type == "cpu" else [])]
+    fa.reset_launches()
+    first = train.main([*args, "--set", "train_max_steps=2", "--set", "save_interval_steps=2"])
+    torch.cuda.synchronize()
+    first_losses, first_lr_state = [m["loss"] for m in first.metrics_log], first.state["opt_state"][2]["count"]
+    del first
+    resumed = train.main([*args, "--set", "train_max_steps=3", "--set", "save_interval_steps=100"])
+    torch.cuda.synchronize()
+    reg_flash = dict(fa.launches)
+    per_kernel = {k: sum(n for (kern, _, _), n in reg_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
+    calls = cfg.n_text_encoder_layer + cfg.n_mel_encoder_layer + cfg.n_decoder_layer
+    log({"phase": "main_path", "what": "bin.train, EFTS-Transformer, registry optimizer",
+         "optimizer": REGISTRY_OPTIMIZER, "losses": first_losses + [m["loss"] for m in resumed.metrics_log],
+         "resumed_steps": [r["step"] for r in resumed.step_times], "schedule_count_at_save": first_lr_state,
+         "schedule_count_after_resume": resumed.state["opt_state"][2]["count"], "flash_launches": keyed(reg_flash)})
+    if (resumed.state["step"] != 3 or [r["step"] for r in resumed.step_times] != [3] or first_lr_state != 2
+            or resumed.state["opt_state"][2]["count"] != 3 or per_kernel != {k: 3 * calls for k in per_kernel}
+            or not all(math.isfinite(v) for v in first_losses + [m["loss"] for m in resumed.metrics_log])):
+        raise AssertionError(f"the registry optimizer through bin.train: steps {resumed.state['step']}, flash "
+                             f"{reg_flash}")
+    del resumed
+    return reg_flash
+
+
+def duration_model_phase(torch, dev):
+    """4o-iv: the DurationModel at the JAX package's default widths (idim 256,
+    256 channels, 2 layers) with a speaker table: the first step on the card
+    against the CPU (dropout 0), a 50-step fit at the default dropout 0.1,
+    `inference`'s rounded durations, one step timed and profiled."""
+    from efficient_tts_tpu_torch.bench import time_ms
+    from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
+    from efficient_tts_tpu_torch.train.duration_train_step import init_duration_state, make_duration_train_step
+    from efficient_tts_tpu_torch.train.optim import AdamWarmup
+
+    cfg = DurationModelConfig(num_spks=8, spk_embed_dim=64)
+    rng = np.random.default_rng(6)
+    ppg = rng.standard_normal((DUR_B, DUR_T, cfg.idim)).astype(np.float32)
+    lengths = rng.integers(DUR_T // 2, DUR_T + 1, DUR_B).astype(np.int32)
+    lengths[0] = DUR_T
+    batch = {"ppg": ppg, "lengths": lengths,
+             "durations": np.clip(np.abs(ppg[:, :, 0] * 3) + 1, 1, 8).astype(np.int32),
+             "spkids": rng.integers(0, cfg.num_spks, DUR_B).astype(np.int32)}
+    first_cfg = dataclasses.replace(cfg, duration_predictor_dropout_rate=0.0)
+    runs, losses = {}, {}
+    for key, dname in (("card", dev), ("cpu", torch.device("cpu"))):
+        tx = AdamWarmup(lr=1e-3, warmup_steps=None)
+        state = init_duration_state(7, first_cfg, tx, device=dname)
+        before = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+        state, m = make_duration_train_step(first_cfg, tx, device=dname)(state, batch)
+        runs[key] = (before, {n: p.detach().clone() for n, p in state["params"].named_parameters()},
+                     state["opt_state"])
+        losses[key] = float(m["loss"])
+    grad_worst, upd_worst, fails = first_update_vs_cpu(torch, runs, lambda s: s["mu"], 0.9)
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+
+    tx = AdamWarmup(lr=1e-2, warmup_steps=None, weight_decay=0.0)
+    state = init_duration_state(8, cfg, tx, device=dev)
+    step = make_duration_train_step(cfg, tx, device=dev)
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    fit = []
+    for _ in range(DUR_STEPS):
+        state, m = step(state, dev_batch)
+        fit.append(m["loss"])
+    fit = [float(x) for x in fit]
+    pred = state["params"].inference(dev_batch["ppg"], dev_batch["spkids"]).cpu()
+    t_step = time_ms(lambda: step(state, dev_batch), iters=20)
+    prof = device_profile(torch, lambda: step(state, dev_batch))
+    summary = profile_summary(prof, t_step["median"], ()) if prof else {"device_busy_ms": "not measured"}
+    log({"phase": "train_card_vs_cpu", "model": "duration_model", "widths": "DurationModelConfig defaults",
+         "num_spks": cfg.num_spks, "spk_embed_dim": cfg.spk_embed_dim, "B": DUR_B, "T": DUR_T,
+         "loss": losses["card"], "loss_cpu": losses["cpu"], "worst_gradient_leaf_rel_l2": grad_worst,
+         "worst_update_rel": upd_worst, "failing": fails[:5], "tolerance": UPDATE_TOL})
+    log({"phase": "main_path", "what": "train.duration_train_step, DurationModel", "steps": DUR_STEPS,
+         "loss_first": fit[0], "loss_last": fit[-1], "losses_every_10": fit[::10],
+         "inference_shape": list(pred.shape), "inference_integers": bool(torch.equal(pred, torch.round(pred))),
+         "step_ms": t_step["median"], "step_ms_p25": t_step["p25"], "step_ms_p75": t_step["p75"], **summary})
+    if (fails or loss_err > 1e-5 or not fit[-1] < 0.5 * fit[0] or not all(math.isfinite(x) for x in fit)
+            or tuple(pred.shape) != (DUR_B, DUR_T) or not torch.equal(pred, torch.round(pred))
+            or (pred < 0).any()):
+        raise AssertionError(f"the DurationModel: first step loss {loss_err}, {fails[:5]}, fit {fit[0]} -> "
+                             f"{fit[-1]}, inference {tuple(pred.shape)}")
 
 
 def build_tree(path):
@@ -2207,10 +2606,13 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as work:
         train_cli_flash, trained = corpus_training_phase(torch, voc, stages, new_launches, work)
-        vocoder_training_phase(torch, stages, new_launches, trained)
+        vocoder = vocoder_training_phase(torch, stages, new_launches, trained)
+        # 4o. the vocoder corpus on the card, a registry optimizer, the DurationModel
+        registry_flash = device_corpus_phase(torch, stages, new_launches, vocoder, trained)
+        del vocoder
     # the flash kernels at the CLI's other lengths, held as phase 3 holds
     # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
-    cli_shapes = sorted({(t, seg) for (_, t, seg) in train_cli_flash} - set(bwd_shapes))
+    cli_shapes = sorted({(t, seg) for (_, t, seg) in (*train_cli_flash, *registry_flash)} - set(bwd_shapes))
     for t, segmented in cli_shapes:
         flash_rows[f"train_cli_t{t}"] = check_flash_backward(torch, fa, t, segmented, dev, bwd_rows)
 
@@ -2408,7 +2810,8 @@ def main(argv=None) -> int:
                        "serve_engine_transformer": serve_flash.get(segmented, 0)}
         else:
             by_path = {"efts_transformer_training": train_launches.get(("fwd", t, True), 0),
-                       "train_cli_transformer": train_cli_flash.get(("fwd", t, True), 0)}
+                       "train_cli_transformer": train_cli_flash.get(("fwd", t, True), 0),
+                       "train_cli_transformer_registry_optimizer": registry_flash.get(("fwd", t, True), 0)}
         # a length only the CLI's corpus gives counts the CLI's launches
         n_launch = by_path["train_cli_transformer" if name.startswith("train_cli") else next(iter(by_path))]
         row = {
@@ -2475,7 +2878,8 @@ def main(argv=None) -> int:
             bound, bound_by, flops = flash_bwd_bound_ms(q, seg, part)
             k_ms = k_dev
             by_path = {"efts_transformer_training": train_launches.get((part, t, segmented), 0),
-                       "train_cli_transformer": train_cli_flash.get((part, t, segmented), 0)}
+                       "train_cli_transformer": train_cli_flash.get((part, t, segmented), 0),
+                       "train_cli_transformer_registry_optimizer": registry_flash.get((part, t, segmented), 0)}
             cli_only = (t, segmented) in cli_shapes
             row = {
                 "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR

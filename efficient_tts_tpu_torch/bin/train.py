@@ -5,8 +5,9 @@
         --train_fid_scp train.txt --dev_fid_scp dev.txt --outdir exp/lj \\
         [--resume CKPT | --pretrain CKPT] [--set KEY=VALUE ...] [--use_cpu]
 
-Trains the model that `model_name` names (EFTS-CNN or EFTS-Transformer)
-on a `wavpath|text` filelist: `TextMelDataset` extracts the mels on the
+Trains the model that `model_name` names (EFTS-CNN or EFTS-Transformer;
+a DurationModel config raises, as the JAX package's CLI has no path for
+it) on a `wavpath|text` filelist: `TextMelDataset` extracts the mels on the
 host, a worker thread collates length-bucketed batches, `device_prefetch`
 copies them to the card ahead of their step, and `EftsTrainer` runs the
 steps with interval logs, evals (at most 8 dev batches; a dev set smaller
@@ -87,6 +88,7 @@ def main(argv=None):
     from efficient_tts_tpu_torch.data.collate import collate_text_mel
     from efficient_tts_tpu_torch.data.dataset import TextMelDataset
     from efficient_tts_tpu_torch.data.loader import background_prefetch, data_loader, device_prefetch, infinite_loader
+    from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
     from efficient_tts_tpu_torch.train import checkpoint as ckpt
     from efficient_tts_tpu_torch.train.efts_train_step import BATCH_DTYPES
     from efficient_tts_tpu_torch.train.efts_trainer import EftsTrainer
@@ -97,8 +99,12 @@ def main(argv=None):
     device = resolve_device("cpu" if args.use_cpu else "cuda")
     config = apply_overrides(load_config(args.config), args.overrides)
     _check_one_device(config)
-    dump_config(config, args.outdir)
     cfg = model_config_from_dict(config)
+    if isinstance(cfg, DurationModelConfig):
+        raise NotImplementedError("bin.train trains EFTS-CNN and EFTS-Transformer; the DurationModel has no "
+                                  "training CLI (nor in the JAX package): train it with "
+                                  "train/duration_train_step.py on data/collate.py:collate_duration_model batches")
+    dump_config(config, args.outdir)
     tx = optimizer_from_dict(config)
 
     ds_params = dict(config.get("dataset_params", {}))

@@ -8,24 +8,36 @@ ignored). The config's `vocoder_params` give the generator
 (`HiFiGANConfig`, V1 by default) and `learning_rate`, `adam_betas` and
 `lr_decay` the optimizer (HiFi-GAN's 2e-4, (0.8, 0.99), 0.999 an epoch);
 the config is dumped to `outdir/config.yml`, from which the inference and
-serving CLIs rebuild the generator. `MelAudioSegmentDataset` crops the
-segments and takes their mels on the host, a worker thread collates the
-next batches, `device_prefetch` copies them to the card ahead of their
-step, and `HiFiGANTrainer` runs the GAN steps with interval logs, evals
-(the first 4 x batch_size dev segments) and checkpoints. Without
-`--resume` it resumes from the newest checkpoint in the outdir, and it
-saves at the end unless it has just saved that step. The weights start
-from the seeded numpy init (`init.py`, seed 0). Runs on the card unless
-`--use_cpu` is given; without a card it raises.
-
-The corpus held on the device (`--device_corpus on`) is not ported:
-`auto` takes the host data path, and `on` raises.
+serving CLIs rebuild the generator. Two data paths:
+  * the device path (`--device_corpus on`, `data/device_corpus.py`): the
+    whole wav corpus is uploaded once, and each step crops its segments and
+    takes both mels on the card from a stream that is a function of the
+    step (a resume continues it); the iterator repeats (0, corpus), so the
+    logged data wait is the time to fetch that pair;
+  * the host path (`off`): `MelAudioSegmentDataset` crops the segments and
+    takes their mels on the host, a worker thread collates the next
+    batches, and `device_prefetch` copies them to the card ahead of their
+    step.
+`auto` (the default) takes the device path when not fine-tuning and the
+padded corpus (`corpus_nbytes`) fits 2 GiB, the JAX package's budget;
+LJSpeech pads to about 11.7 GB and stays on the host path. GTA fine-tuning
+reads the stored mels, so `--device_corpus on` with `--fine_tuning` raises.
+`HiFiGANTrainer` runs the GAN steps with interval logs, evals (the first
+4 x batch_size dev segments) and checkpoints. Without `--resume` it
+resumes from the newest checkpoint in the outdir, and it saves at the end
+unless it has just saved that step. The weights start from the seeded
+numpy init (`init.py`, seed 0). Runs on the card unless `--use_cpu` is
+given; without a card it raises. `main` returns the trainer, whose
+`data_path` says which path ran.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
+
+DEVICE_CORPUS_BUDGET = 2 << 30  # bytes of the padded corpus `auto` puts on the card
 
 
 def get_parser():
@@ -55,7 +67,8 @@ def get_parser():
     p.add_argument("--base_mels_path", default=None,
                    help="dir of GTA mels from efficient_tts_tpu_torch.bin.extract_gta")
     p.add_argument("--device_corpus", choices=["auto", "on", "off"], default="auto",
-                   help="hold the wav corpus on the card (not ported: auto takes the host path, on raises)")
+                   help="hold the wav corpus on the card and crop and take mels there (auto: when not "
+                   "fine-tuning and the padded corpus fits 2 GiB)")
     p.add_argument("--use_cpu", action="store_true", help="run on the CPU (the default is the card)")
     return p
 
@@ -69,11 +82,13 @@ def main(argv=None):
     """Train as the arguments say; returns the `HiFiGANTrainer` after its final save."""
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.device_corpus == "on":
-        raise NotImplementedError("--device_corpus on: the device-resident corpus (data/device_corpus.py) is not "
-                                  "ported yet (ROADMAP Queue 1 item 8b); use --device_corpus off")
+    if args.device_corpus == "on" and args.fine_tuning:
+        raise ValueError("--device_corpus on with --fine_tuning: GTA fine-tuning trains on the GTA mels of "
+                         "--base_mels_path, which the device corpus does not hold (it would recompute mels from "
+                         "the audio); use --device_corpus off or auto")
     import torch
 
+    from efficient_tts_tpu_torch.data import device_corpus as dc
     from efficient_tts_tpu_torch.data.collate import collate_mel_audio
     from efficient_tts_tpu_torch.data.dataset import MelAudioSegmentDataset
     from efficient_tts_tpu_torch.data.loader import background_prefetch, device_prefetch, infinite_loader
@@ -103,10 +118,20 @@ def main(argv=None):
     step = make_gan_train_step(voc_cfg, gen_tx, disc_tx, use_stft_loss=args.use_stft_loss, ema_decay=args.ema_decay,
                                compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
                                device=device)
-    # background_prefetch crops and collates the next batches on a worker
-    # thread across epochs; device_prefetch copies them to the card ahead
-    train_iter = device_prefetch(background_prefetch(infinite_loader(ds, args.batch_size, collate_mel_audio)),
-                                 size=2, device=device, dtypes={k: torch.float32 for k in BATCH_KEYS})
+    on_device = args.device_corpus == "on" or (
+        args.device_corpus == "auto" and not args.fine_tuning
+        and dc.corpus_nbytes(files, voc_cfg.segment_size) <= DEVICE_CORPUS_BUDGET)
+    if on_device:
+        corpus = dc.load_corpus(files, segment_size=voc_cfg.segment_size, device=device)
+        step = dc.make_device_gan_train_step(step, dc.make_device_batch_fn(
+            args.batch_size, segment_size=voc_cfg.segment_size, device=device))
+        train_iter = itertools.repeat((0, corpus))
+    else:
+        # background_prefetch crops and collates the next batches on a worker
+        # thread across epochs; device_prefetch copies them to the card ahead
+        train_iter = device_prefetch(background_prefetch(infinite_loader(ds, args.batch_size, collate_mel_audio)),
+                                     size=2, device=device, dtypes={k: torch.float32 for k in BATCH_KEYS})
+    logging.info("vocoder data path: %s", "device corpus" if on_device else "host")
     eval_step, eval_batches = None, []
     if args.dev_wav_scp:
         dev_ds = MelAudioSegmentDataset(_read_scp(args.dev_wav_scp), segment_size=voc_cfg.segment_size,
@@ -121,6 +146,7 @@ def main(argv=None):
                              log_interval_steps=args.log_interval_steps, eval_step=eval_step,
                              eval_batches=eval_batches, eval_interval_steps=args.eval_interval_steps,
                              max_keep_checkpoints=args.max_keep_checkpoints, device=device)
+    trainer.data_path = "device" if on_device else "host"
     resume = args.resume or ckpt.latest_checkpoint(args.outdir)
     if resume:
         logging.info("resuming from %s", resume)

@@ -26,6 +26,12 @@ at zero on both sides: the bridge carries parameters only), and
 parameters, back onto the JAX tree. `generator_to_jax` is the generator's
 half, on which `HiFiGANTrainGenerator.fold` rests.
 
+The DurationModel crosses as its predictor's tree (with the speaker
+table and projection when the config has them):
+`duration_model_from_jax` / `duration_model_to_jax`; the postnet with its
+batch-norm state {scale, bias, mean, var}: `postnet_from_jax` /
+`postnet_to_jax`.
+
 `hifigan_generator_from_state_dict` loads the reference's own HiFi-GAN
 generator files (a torch state dict, weight-normed or folded, as
 `load_reference_checkpoint` reads them): counterpart of
@@ -38,11 +44,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from efficient_tts_tpu_torch.models.duration_model import DurationModel, DurationModelConfig
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer, EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
 from efficient_tts_tpu_torch.models.hifigan_train import Discriminators, HiFiGANTrainGenerator
 from efficient_tts_tpu_torch.nn.layers import SNConv1d, WNConv1d, fold_weight_norm
+from efficient_tts_tpu_torch.nn.postnet import Postnet
 from efficient_tts_tpu_torch.utils.device import resolve_device
 
 
@@ -136,6 +144,16 @@ def _entries_duration_predictor(mod):
         yield from _entries_linear(("duration_predictor", "convs", i), conv, "conv")
         yield from _entries_norm(("duration_predictor", "norms", i), norm)
     yield from _entries_linear(("duration_predictor", "out"), mod.out)
+    if mod.spk_embedding is not None:
+        yield ("duration_predictor", "spk_embedding", "table"), mod.spk_embedding, "same"
+        yield from _entries_linear(("duration_predictor", "spk_projection"), mod.spk_projection)
+
+
+def _entries_postnet(mod: Postnet):
+    for i, (conv, norm) in enumerate(zip(mod.convs, mod.norms)):
+        yield from _entries_linear(("convs", i), conv, "conv")
+        for name in ("scale", "bias", "mean", "var"):
+            yield ("norms", i, name), getattr(norm, name), "same"
 
 
 def _entries_cnn(model: EftsCNN):
@@ -277,6 +295,42 @@ def efts_transformer_to_jax(model: EftsTransformer, grads: bool = False) -> dict
     """The model's parameters (or, with `grads`, their `.grad`, zeros where
     there is none) as a numpy tree with the JAX package's keys and layouts."""
     return _tree_from_entries(_entries_transformer(model), _grad if grads else (lambda p: p))
+
+
+@torch.no_grad()
+def duration_model_from_jax(params: dict, cfg: DurationModelConfig, device="cuda",
+                            trainable: bool = False) -> DurationModel:
+    """The DurationModel of a JAX DurationModel tree (its predictor with the
+    speaker table and projection when the config has them)."""
+    dev = resolve_device(device)
+    model = DurationModel(cfg)
+    _load_entries(_entries_duration_predictor(model.duration_predictor), params)
+    model.requires_grad_(trainable)
+    return model.to(dev).train(trainable)
+
+
+@torch.no_grad()
+def duration_model_to_jax(model: DurationModel, grads: bool = False) -> dict:
+    """The model's parameters (or, with `grads`, their `.grad`) as the JAX tree."""
+    return _tree_from_entries(_entries_duration_predictor(model.duration_predictor),
+                              _grad if grads else (lambda p: p))
+
+
+@torch.no_grad()
+def postnet_from_jax(params: dict, device="cuda") -> Postnet:
+    """The postnet of a JAX postnet tree ({convs, norms: {scale, bias, mean,
+    var}}), its widths read from the tree."""
+    dev = resolve_device(device)
+    convs = params["convs"]
+    k, odim, n_chans = np.asarray(convs[0]["w"]).shape
+    mod = Postnet(odim=odim, n_layers=len(convs), n_chans=n_chans, n_filts=k)
+    _load_entries(_entries_postnet(mod), params)
+    return mod.to(dev)
+
+
+@torch.no_grad()
+def postnet_to_jax(mod: Postnet) -> dict:
+    return _tree_from_entries(_entries_postnet(mod))
 
 
 def _tree_from_entries(entries, value_of=lambda p: p) -> dict:

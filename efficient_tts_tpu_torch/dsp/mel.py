@@ -13,11 +13,16 @@ step takes the mel of the generated audio on the card with
   4. the Slaney mel filterbank (sr 22050, 1024 fft, 80 mels, fmin 0,
      fmax 8000);
   5. log(clamp(x, min=1e-5)).
+The window and the filterbank are made on a device once per config
+(`device_constant`): a copy from pageable host memory waits for the
+stream's queued work, so making them at every call stopped the host from
+running ahead of the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -92,6 +97,17 @@ def mel_spectrogram_np(y: np.ndarray, cfg: MelConfig = MelConfig()) -> np.ndarra
     return out[0] if squeeze else out
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(make, args: tuple, device: torch.device) -> torch.Tensor:
+    """`make(*args)` (a numpy array) as an f32 tensor on `device`, made once;
+    callers must not write to it."""
+    return torch.from_numpy(np.asarray(make(*args), np.float32)).to(device)
+
+
+def _filterbank(cfg: MelConfig) -> np.ndarray:
+    return mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.fmin, cfg.fmax)
+
+
 def _frames(y: torch.Tensor, pad: int, frame_length: int, hop: int) -> torch.Tensor:
     """[B, T] -> reflect-padded by `pad` each side -> [B, F, frame_length]."""
     y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
@@ -102,15 +118,18 @@ def stft_magnitude(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tenso
     """[B, T] f32 waveform -> [B, n_bins, F] magnitude: reflect pad of
     (n_fft - hop) / 2, frames with center=False, the padded Hann window, an
     f32 rFFT, sqrt(re^2 + im^2 + mag_eps)."""
-    win = torch.from_numpy(padded_window(cfg).astype(np.float32)).to(y.device)
+    win = device_constant(padded_window, (cfg,), y.device)
     spec = torch.fft.rfft(_frames(y, cfg.pad, cfg.n_fft, cfg.hop_size) * win, n=cfg.n_fft, dim=-1)
     return torch.sqrt(spec.real**2 + spec.imag**2 + cfg.mag_eps).transpose(-1, -2)
+
+
+def log_mel(mag: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """[B, n_bins, F] magnitude -> [B, num_mels, F] log-mel on cfg's filterbank."""
+    return torch.log(torch.clamp(device_constant(_filterbank, (cfg,), mag.device) @ mag, min=cfg.clip_val))
 
 
 def mel_spectrogram(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """[B, T] f32 waveform -> [B, num_mels, F] log-mel: the filterbank product
     in f32 (call it under `utils/precision.py:full_f32` on the card, as the
     JAX package computes it at Precision.HIGHEST), then log(clamp(., clip_val))."""
-    basis = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.fmin, cfg.fmax)
-                             .astype(np.float32)).to(y.device)
-    return torch.log(torch.clamp(basis @ stft_magnitude(y, cfg), min=cfg.clip_val))
+    return log_mel(stft_magnitude(y, cfg), cfg)

@@ -2,8 +2,9 @@
 
 Same keys, shapes and distributions as `efficient_tts_tpu/models/
 efficient_tts.py:init`, `models/efficient_tts_transformer.py:init`,
-`models/hifigan.py:init_generator`, `init_mpd` and `init_msd`, and the GAN
-state of `train/hifigan_train_step.py:init_gan_state` (torch-style
+`models/hifigan.py:init_generator`, `init_mpd` and `init_msd`, the GAN
+state of `train/hifigan_train_step.py:init_gan_state`,
+`models/duration_model.py:init` and `nn/postnet.py:postnet_init` (torch-style
 kaiming-uniform convs and linears, N(0, 1) embedding, N(0, 0.01) HiFi-GAN
 upsample and resblock convs, weight norm as {v, g, b} with g = ||v||,
 spectral norm as {w_orig, u, v, b} with unit N(0, 1) u and v), drawn from
@@ -17,6 +18,7 @@ import math
 
 import numpy as np
 
+from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
@@ -75,9 +77,9 @@ def _layer_norm(c):
     return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
 
 
-def _duration_predictor(rng, c, n_layers):
+def _duration_predictor(rng, c, n_layers, k=3):
     return {
-        "convs": [_conv(rng, c, c, 3) for _ in range(n_layers)],
+        "convs": [_conv(rng, c, c, k) for _ in range(n_layers)],
         "norms": [_layer_norm(c) for _ in range(n_layers)],
         "out": _linear(rng, c, 1),
     }
@@ -188,3 +190,27 @@ def init_gan_state(seed: int, cfg: HiFiGANConfig, ema: bool = False) -> dict:
     if ema:
         state["ema"] = gen
     return state
+
+
+def init_duration_model(seed: int, cfg: DurationModelConfig) -> dict:
+    """{"duration_predictor": {convs, norms, out[, spk_embedding, spk_projection]}}."""
+    rng = np.random.default_rng(seed)
+    c = cfg.duration_predictor_chans
+    dp = _duration_predictor(rng, c, cfg.duration_predictor_layers, cfg.duration_predictor_kernel_size)
+    if cfg.spk_embed_dim is not None:
+        if cfg.num_spks is None:
+            raise ValueError("num_spks has to be set.")
+        dp["spk_embedding"] = _embedding(rng, cfg.num_spks, cfg.spk_embed_dim)
+        proj_in = cfg.spk_embed_dim + (cfg.idim if cfg.spk_embed_integration_type == "concat" else 0)
+        dp["spk_projection"] = _linear(rng, proj_in, c)
+    return {"duration_predictor": dp}
+
+
+def init_postnet(seed: int, odim: int = 80, n_layers: int = 5, n_chans: int = 512, n_filts: int = 5) -> dict:
+    """{"convs": [...], "norms": [{scale, bias, mean, var}]}: scale 1, bias 0,
+    mean 0, var 1, as JAX's `postnet_init`."""
+    rng = np.random.default_rng(seed)
+    chans = [odim] + [n_chans] * (n_layers - 1) + [odim]
+    return {"convs": [_conv(rng, chans[i], chans[i + 1], n_filts) for i in range(n_layers)],
+            "norms": [{**_layer_norm(c), "mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32)}
+                      for c in chans[1:]]}

@@ -13,17 +13,19 @@ import numpy as np
 import torch
 
 from efficient_tts_tpu_torch.dsp.filters import hann_window
-from efficient_tts_tpu_torch.dsp.mel import _frames
+from efficient_tts_tpu_torch.dsp.mel import _frames, device_constant
 
 DEFAULT_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
 
+def _window(fft_size: int, win_length: int) -> np.ndarray:
+    lpad = (fft_size - win_length) // 2
+    return np.pad(hann_window(win_length), (lpad, fft_size - win_length - lpad)).astype(np.float32)
+
+
 def _stft_magnitude(x: torch.Tensor, fft_size: int, hop: int, win_length: int) -> torch.Tensor:
     """[B, T] -> [B, frames, fft_size // 2 + 1]."""
-    win = hann_window(win_length)
-    lpad = (fft_size - win_length) // 2
-    win = np.pad(win, (lpad, fft_size - win_length - lpad)).astype(np.float32)
-    frames = _frames(x, fft_size // 2, fft_size, hop) * torch.from_numpy(win).to(x.device)
+    frames = _frames(x, fft_size // 2, fft_size, hop) * device_constant(_window, (fft_size, win_length), x.device)
     spec = torch.fft.rfft(frames, n=fft_size, dim=-1)
     return torch.sqrt(torch.clamp(spec.real**2 + spec.imag**2, min=1e-7))
 

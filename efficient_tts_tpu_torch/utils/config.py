@@ -14,6 +14,7 @@ from __future__ import annotations
 import json
 import os
 
+from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
@@ -63,7 +64,7 @@ def model_config_from_dict(config: dict):
         params.pop("use_weighted_masking", None)
         return EftsTransformerConfig(**params)
     if name == "DurationModel":
-        raise NotImplementedError("the DurationModel is not ported yet (ROADMAP Queue 1 item 9)")
+        return DurationModelConfig(**params)
     raise ValueError(f"unknown model_name: {name}")
 
 

@@ -26,6 +26,7 @@ from efficient_tts_tpu.utils import config as jconfig
 from efficient_tts_tpu.utils.masks import pad_list as jpad_list
 from efficient_tts_tpu_torch import compat, init
 from efficient_tts_tpu_torch.bin import inference, serve as serve_cli
+from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
@@ -148,8 +149,13 @@ def test_config_readers_match_jax(tmp_path):
     for d, cls in ((cnn, EftsCNNConfig), (tr, EftsTransformerConfig)):
         got = config.model_config_from_dict(d)
         assert isinstance(got, cls) and dataclasses.asdict(got) == dataclasses.asdict(jconfig.model_config_from_dict(d))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        config.model_config_from_dict({"model_name": "DurationModel"})
+    dur = {"model_name": "DurationModel", "model_params": {"idim": 128, "duration_predictor_chans": 128,
+                                                            "num_spks": 4, "spk_embed_dim": 16,
+                                                            "spk_embed_integration_type": "concat"}}
+    for d in ({"model_name": "DurationModel"}, dur):
+        got = config.model_config_from_dict(d)
+        assert isinstance(got, DurationModelConfig)
+        assert dataclasses.asdict(got) == dataclasses.asdict(jconfig.model_config_from_dict(d))
     with pytest.raises(ValueError, match="unknown model_name"):
         config.model_config_from_dict({"model_name": "Nope"})
     voc = {"vocoder_params": {"upsample_rates": [8, 8, 4], "resblock_dilation_sizes": [[1, 2], [2, 6]]}}

@@ -4,7 +4,8 @@ The JAX tests' narrow generator (initial channel 64, one kernel 3,
 dilations (1, 3), segment 2048) with the full MPD and MSD, B=2, and the
 JAX training test's batch (a 220 Hz tone plus seeded noise, its mel and its
 full-band loss mel). Parameters come from `jax.random` through the JAX
-package's own init and cross to the port through `compat`; other inputs are
+package's own init (one GAN state for the module's discriminator, step
+and bridge tests) and cross to the port through `compat`; other inputs are
 seeded with numpy. Tolerances, f32 on both sides:
   * the tensor log-mel against `dsp/mel.py:mel_spectrogram`: max error
     <= 1e-5 of the reference's range;
@@ -101,10 +102,13 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _jax_state_tree(key=0, ema=True):
+@pytest.fixture(scope="module")
+def jax_tree():
+    """One JAX GAN state from `jax.random` (with an EMA), shared by the
+    module's fixtures and tests: drawing the discriminators' 70.7 M
+    parameters eagerly took 30-40 s of a CPU run each time."""
     tx = hifigan_adam(lr=LR)
-    state = jts.init_gan_state(jax.random.PRNGKey(key), JCFG, tx, tx, ema_decay=EMA if ema else None)
-    return state
+    return jts.init_gan_state(jax.random.PRNGKey(0), JCFG, tx, tx, ema_decay=EMA)
 
 
 def _port_state(tree):
@@ -163,20 +167,19 @@ def test_train_generator_matches_jax_and_folds_bit_for_bit(kw):
 
 
 @pytest.fixture(scope="module")
-def disc_pair():
-    """JAX's MPD and MSD (the MSD's u and v advanced by 3 power iterations,
-    as training advances them before every forward, so the spectral-normed
-    tower runs at its weights' scale and not at a random sigma's), their
-    pairwise outputs from one compile (JAX's fused pass is the same numbers,
+def disc_pair(jax_tree):
+    """JAX's MPD and MSD of the shared state (the MSD's u and v advanced by 3
+    power iterations, as training advances them before every forward, so the
+    spectral-normed tower runs at its weights' scale and not at a random
+    sigma's), their pairwise outputs from one compile (JAX's fused pass is
+    the same numbers,
     `test_hifigan_training.py:test_fused_discriminator_forward_matches_pairwise`),
     and the port's modules."""
-    key = jax.random.PRNGKey(5)
-    k1, k2 = jax.random.split(key)
-    msd = jhg.init_msd(k2)
+    msd = jax_tree["disc"]["params"]["msd"]
     for _ in range(3):
         msd = jhg.msd_power_iteration(msd)
-    params = {"mpd": jhg.init_mpd(k1), "msd": msd}
-    tree = {"gen": {"params": jhg.init_generator(key, JCFG)}, "disc": {"params": params}, "step": 0}
+    params = {"mpd": jax_tree["disc"]["params"]["mpd"], "msd": msd}
+    tree = {"gen": {"params": jax_tree["gen"]["params"]}, "disc": {"params": params}, "step": 0}
     port = _port_state(tree)["disc"]["params"]
     rng = np.random.default_rng(2)
     y, y_hat = (0.3 * rng.standard_normal((2, 2, 2048))).astype(np.float32)
@@ -265,11 +268,11 @@ def test_hifigan_adam_matches_optax():
 
 
 @pytest.fixture(scope="module")
-def steps():
+def steps(jax_tree):
     """The JAX step and the port's, two steps each from the same parameters."""
     batch = _batch()
     tx = hifigan_adam(lr=LR)
-    s0 = _jax_state_tree()
+    s0 = jax_tree
     jstep = jts.make_gan_train_step(JCFG, tx, tx, use_stft_loss=True, ema_decay=EMA)
     js1, jm1 = jstep(s0, batch)
     js2, jm2 = jstep(js1, batch)
@@ -355,8 +358,8 @@ def test_eval_step_matches_jax(steps):
     assert float(eval_step(port_gen.fold(), steps["batch"])["mel_l1"]) == float(out["mel_l1"])
 
 
-def test_gan_bridge_round_trips():
-    tree = _np(_jax_state_tree(key=9))
+def test_gan_bridge_round_trips(jax_tree):
+    tree = _np(jax_tree)
     tree["step"] = 3
     state = _port_state(tree)
     assert isinstance(state["disc"]["params"], Discriminators) and state["step"] == 3

@@ -48,7 +48,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "data.dataset", "ops.launch_counts", "data.loader", "data.collate", "dsp", "dsp.mel",
                  "dsp.filters", "native", "bin.train", "bench.corpus", "losses.gan", "losses.stft_loss",
                  "train.hifigan_train_step", "train.hifigan_trainer", "bin.train_vocoder", "bin.extract_gta",
-                 "models.hifigan_train"):
+                 "models.hifigan_train", "data.device_corpus", "train.torch_optim", "models.duration_model",
+                 "train.duration_train_step", "losses.duration", "nn.length_regulator", "nn.postnet"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -198,3 +199,37 @@ def test_vocoder_training_entry_points_default_to_cuda_and_raise_without_a_card(
              "mel_loss": np.zeros((1, 8, 80), np.float32)}
     with pytest.raises(ValueError, match="holds tensors on meta"):
         step(state, batch)
+
+
+def test_device_corpus_and_duration_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """The device corpus, its batcher and the DurationModel's state and step
+    run on the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    from scipy.io.wavfile import write as wav_write
+
+    from efficient_tts_tpu_torch.data.device_corpus import load_corpus, make_device_batch_fn
+    from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
+    from efficient_tts_tpu_torch.train.duration_train_step import init_duration_state, make_duration_train_step
+    from efficient_tts_tpu_torch.train.optim import AdamWarmup
+
+    wav = str(tmp_path / "a.wav")
+    wav_write(wav, 22050, (np.sin(np.arange(3000) / 9.0) * 9000).astype(np.int16))
+    cfg = DurationModelConfig(idim=8, duration_predictor_chans=8)
+    tx = AdamWarmup()
+    for call in (lambda: load_corpus([wav], segment_size=2048), lambda: make_device_batch_fn(2, 2048),
+                 lambda: init_duration_state(0, cfg, tx), lambda: make_duration_train_step(cfg, tx)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    corpus = load_corpus([wav], segment_size=2048, device="cpu")
+    assert corpus["wav"].device.type == "cpu" and corpus["wav"].shape == (1, 3072)
+    assert make_device_batch_fn(2, 2048, device="cpu")(corpus, 0)["audio"].shape == (2, 2048)
+    state = init_duration_state(0, cfg, tx, device="cpu")
+    batch = {"ppg": np.zeros((1, 4, 8), np.float32), "lengths": np.array([4]), "durations": np.ones((1, 4), np.int32),
+             "spkids": np.zeros((1,), np.int32)}
+    state, metrics = make_duration_train_step(cfg, tx, device="cpu")(state, batch)
+    assert state["step"] == 1 and set(metrics) == {"loss"}
+    # a model on another device than the step's is refused, not moved
+    state["params"].to("meta")
+    with pytest.raises(ValueError, match="holds tensors on meta"):
+        make_duration_train_step(cfg, tx, device="cpu")(state, batch)

@@ -352,7 +352,9 @@ def test_optimizer_matches_optax(amsgrad, clip_scale):
 
 def test_optimizer_from_the_yaml_matches_the_jax_config():
     """The transformer yaml's optimizer block gives the same chain: one update
-    of the same gradients agrees with optax's."""
+    of the same gradients agrees with optax's; so does the yaml with its
+    optimizer set to RAdam (no clip, no schedule, as JAX's branch), over
+    steps past RAdam's rectification threshold."""
     config = load_config(os.path.join(ROOT, "efficient_tts_tpu", "configs", "lj_efts_transformer_phnseq.yaml"))
     tx_t, tx_j = optimizer_from_dict(config), joptimizer_from_dict(config)
     assert (tx_t.b1, tx_t.b2, tx_t.eps, tx_t.weight_decay, tx_t.amsgrad, tx_t.grad_clip_norm) == (
@@ -363,8 +365,15 @@ def test_optimizer_from_the_yaml_matches_the_jax_config():
     u_t, _ = tx_t.update({"w": torch.from_numpy(g["w"])}, tx_t.init({"w": torch.from_numpy(p["w"])}),
                          {"w": torch.from_numpy(p["w"])})
     _close(u_t["w"], u_j["w"], rtol=1e-5, atol=1e-12)
-    with pytest.raises(NotImplementedError):
-        optimizer_from_dict({"optimizer_type": "RAdam"})
+    radam = {**config, "optimizer_type": "RAdam"}
+    tx_t, tx_j = optimizer_from_dict(radam), joptimizer_from_dict(radam)
+    st_t, st_j = tx_t.init({"w": torch.from_numpy(p["w"])}), tx_j.init(p)
+    rng = np.random.default_rng(9)
+    for _ in range(8):
+        g = {"w": rng.standard_normal(4).astype(np.float32)}
+        u_j, st_j = tx_j.update(g, st_j, p)
+        u_t, st_t = tx_t.update({"w": torch.from_numpy(g["w"])}, st_t, {"w": torch.from_numpy(p["w"])})
+        _close(u_t["w"], u_j["w"], rtol=1e-5, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

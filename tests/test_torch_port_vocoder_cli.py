@@ -251,8 +251,12 @@ def test_extract_gta_writes_the_lengths_the_dataset_reads(corpus, tmp_path):
 
 
 def test_device_corpus_on_raises(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="device_corpus"):
-        train_vocoder.main(_cli(corpus, str(tmp_path / "exp"), "--device_corpus", "on"))
+    """`--device_corpus on` with `--fine_tuning` raises, naming the GTA mels
+    the device corpus does not hold, before any state is built."""
+    with pytest.raises(ValueError, match="GTA mels"):
+        train_vocoder.main(_cli(corpus, str(tmp_path / "exp"), "--device_corpus", "on", "--fine_tuning",
+                                "--base_mels_path", str(tmp_path / "gta")))
+    assert not os.path.exists(tmp_path / "exp")
 
 
 def test_trainer_divergence_guard_and_bounded_history(tmp_path):
