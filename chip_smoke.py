@@ -177,6 +177,21 @@ Phases, each of which raises on failure:
         JAX package's defaults with a speaker table: the first step on the
         card against the CPU's, a 50-step fit whose loss halves, rounded
         durations from `inference`, one step timed and profiled;
+     p. the reference's file formats on 4m's and 4n's checkpoints:
+        `bin.export_torch` of the EFTS-CNN checkpoint to the reference's
+        .pkl and `bin.convert_checkpoint` back (its config.yml copied
+        beside), parameters bit-equal; `bin.inference` on it with 4n's
+        vocoder, and with the EMA generator exported to reference generator
+        files (weight-normed, and folded with `--fold_weight_norm`): each
+        run's wavs byte-equal to 4n-iv's, 72 f32 MRF launches a run; the
+        `g_`/`do_` pair of `--model HiFiGANFull`, its MPD and MSD read back
+        through `compat.torch_import` onto the card: logits and feature maps
+        bit-equal to the checkpoint's discriminators on a batch of 16 dev
+        segments (pairwise and fused), the spectral norm's u and v equal;
+        `utils.profiling.time_step` of the f32 EFTS-CNN `synthesize_fixed`
+        of 5 (printed there beside its CUDA-event time, within 10%) and a
+        `trace` of one call naming the f32 MRF kernel; 4m's eval images, or
+        a line saying that matplotlib is absent;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -1533,7 +1548,8 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
              "cli_f32": cli_split, **summary})
         del state, step
     return {"voc_cfg": voc_cfg, "config": config_path, "wavs": wavs, "scps": scps, "host_cli": host_cli,
-            "work": work}
+            "work": work, "checkpoint": voc_ckpt, "test_scp": test_scp,
+            "wavs_vocoder": os.path.join(work, "wavs_vocoder")}
 
 
 def step_walls(step_times):
@@ -2009,6 +2025,176 @@ def baseline_phase(torch, path, dev):
     ratio = {tree: [b_ / i_ for b_, i_ in zip(times["bf16"][tree], times["int8"][tree])] for tree in ("earlier", "this")}
     log({"phase": "baseline", "what": "probe_matmul int8:bf16 rate ratio", "earlier": ratio["earlier"],
          "this": ratio["this"]})
+
+
+def wav_dirs_diff(a_dir, b_dir, names):
+    """(whether each named wav is byte-equal in the two directories, the
+    largest PCM difference between them)."""
+    from scipy.io import wavfile
+
+    same, worst = True, 0
+    for name in names:
+        a, b = os.path.join(a_dir, name), os.path.join(b_dir, name)
+        with open(a, "rb") as fa_, open(b, "rb") as fb_:
+            same = same and fa_.read() == fb_.read()
+        pa, pb = wavfile.read(a)[1].astype(np.int32), wavfile.read(b)[1].astype(np.int32)
+        worst = max(worst, int(np.abs(pa - pb).max()) if pa.shape == pb.shape else 1 << 16)
+    return same, worst
+
+
+def reference_io_phase(torch, stages, new_launches, voc, trained, synth, device="cuda"):
+    """4p: the reference's file formats and the tooling on 4m's EFTS-CNN
+    checkpoint and 4n's vocoder checkpoint: an EFTS-CNN round trip through
+    `bin.export_torch` and `bin.convert_checkpoint`, the EMA generator
+    exported weight-normed and folded, each then through `bin.inference`
+    (wavs byte-equal to 4n-iv's, 72 f32 MRF launches a run); the `g_`/`do_`
+    pair read back into the discriminators (outputs and feature maps
+    bit-equal on one batch); `utils.profiling.time_step` of `synth` and a
+    `trace` around it; 4m's eval images. `voc` is what 4n returns, `trained`
+    what 4m returns. Returns time_step's ms for phase 5 to print beside its
+    own. `device` is the card; "cpu" rehearses the phase at a small config."""
+    import shutil
+
+    from efficient_tts_tpu_torch.bin import convert_checkpoint, export_torch, inference
+    from efficient_tts_tpu_torch.compat import torch_import
+    from efficient_tts_tpu_torch.data.collate import collate_mel_audio
+    from efficient_tts_tpu_torch.data.dataset import MelAudioSegmentDataset, load_filepaths_and_text
+    from efficient_tts_tpu_torch.models.hifigan_train import Discriminators, HiFiGANTrainGenerator
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.train.checkpoint import read_checkpoint
+    from efficient_tts_tpu_torch.train.hifigan_train_step import batch_to_device
+    from efficient_tts_tpu_torch.utils import plotting, profiling
+
+    dev = torch.device(device)
+    cpu = ["--use_cpu"] if dev.type == "cpu" else []
+    t_phase = time.perf_counter()
+    cnn_ckpt, voc_ckpt = trained["cnn_checkpoint"], voc["checkpoint"]
+    root = os.path.join(voc["work"], "reference_io")
+    names = [os.path.splitext(os.path.basename(p))[0] + "_gen.wav"
+             for p, _ in load_filepaths_and_text(voc["test_scp"])]
+    want_launches = stage_launches(stages, "f32", 1)
+
+    def infer(tag, checkpoint, vocoder):
+        out = os.path.join(root, tag)
+        mrf.reset_launches()
+        inference.main([*cpu, "--test_fid_scp", voc["test_scp"], "--checkpoint", checkpoint, "--outdir", out,
+                        "--batch_size", "8", "--vocoder_checkpoint", vocoder])
+        launches = new_launches[f"reference_io_{tag}", "f32"] = dict(mrf.launches)
+        return (*wav_dirs_diff(out, voc["wavs_vocoder"], names), launches)
+
+    # i. EFTS-CNN: the port's checkpoint -> the reference's .pkl -> the port's
+    # checkpoint (the config copied beside it), then the inference CLI
+    cnn_config = os.path.join(os.path.dirname(cnn_ckpt), "config.yml")
+    pkl = os.path.join(root, "efts_cnn.pkl")
+    os.makedirs(root, exist_ok=True)
+    export_torch.main(["--checkpoint", cnn_ckpt, "--out", pkl])
+    converted = convert_checkpoint.main(["--torch_checkpoint", pkl, "--outdir", os.path.join(root, "converted"),
+                                         "--config", cnn_config])
+    shutil.copy(cnn_config, os.path.dirname(converted))
+    before, after = read_checkpoint(cnn_ckpt)["params"], read_checkpoint(converted)
+    params_equal = sorted(before) == sorted(after["params"]) and all(torch.equal(v, after["params"][k])
+                                                                    for k, v in before.items())
+    same, pcm_diff, launches = infer("efts_cnn_round_trip", converted, voc_ckpt)
+    log({"phase": "reference_io", "what": "EFTS-CNN: bin.export_torch -> bin.convert_checkpoint -> bin.inference",
+         "checkpoint": os.path.basename(cnn_ckpt), "pkl_tensors": len(torch.load(pkl, weights_only=False)["model"]),
+         "converted": os.path.basename(converted), "step": after["step"], "params_bit_equal": params_equal,
+         "wavs": len(names), "wavs_byte_equal_to_4n_iv": same, "max_pcm_diff": pcm_diff,
+         "mrf_launches": keyed(launches)})
+    if not params_equal or after["step"] != 14 or not same or launches != want_launches:
+        raise AssertionError(f"the EFTS-CNN round trip: params equal {params_equal}, step {after['step']}, "
+                             f"wavs equal {same} (PCM diff {pcm_diff}), launches {launches}")
+    del before, after
+
+    # ii. the EMA generator as the reference's generator file, weight-normed
+    # and folded, each the inference CLI's vocoder
+    for fold in (False, True):
+        tag = "generator_folded" if fold else "generator_weight_normed"
+        out_dir = os.path.join(root, tag)
+        os.makedirs(out_dir, exist_ok=True)
+        shutil.copy(os.path.join(os.path.dirname(voc_ckpt), "config.yml"), out_dir)
+        gen_file = os.path.join(out_dir, "generator_v1")
+        export_torch.main(["--model", "HiFiGANGenerator", "--checkpoint", voc_ckpt, "--out", gen_file, "--ema",
+                           *(["--fold_weight_norm"] if fold else [])])
+        keys = torch.load(gen_file, weights_only=False)["generator"]
+        same, pcm_diff, launches = infer(tag, cnn_ckpt, gen_file)
+        weight_v = sum(k.endswith("weight_v") for k in keys)
+        log({"phase": "reference_io", "what": f"bin.export_torch --model HiFiGANGenerator --ema"
+             f"{' --fold_weight_norm' if fold else ''} -> bin.inference", "tensors": len(keys),
+             "weight_v_keys": weight_v, "wavs": len(names), "wavs_byte_equal_to_4n_iv": same,
+             "max_pcm_diff": pcm_diff, "mrf_launches": keyed(launches)})
+        if not same or launches != want_launches or (weight_v == 0) != fold:
+            raise AssertionError(f"the {tag} file through the inference CLI: wavs equal to 4n-iv's {same} (PCM "
+                                 f"diff {pcm_diff}), launches {launches}")
+
+    # iii. the official recipe's g_/do_ pair; MPD and MSD read back onto the card
+    full = os.path.join(root, "full")
+    g_path, do_path = export_torch.main(["--model", "HiFiGANFull", "--checkpoint", voc_ckpt, "--out", full])
+    do = torch.load(do_path, weights_only=False)
+    saved = read_checkpoint(voc_ckpt)
+    orig = Discriminators()
+    orig.load_state_dict(saved["disc"]["params"])
+    orig.to(dev)
+    mpd = torch_import.hifigan_mpd_from_state_dict(do["mpd"], device=dev)
+    msd = torch_import.hifigan_msd_from_state_dict(do["msd"], device=dev)
+    gen = HiFiGANTrainGenerator(voc["voc_cfg"])
+    gen.load_state_dict(saved["ema"])
+    gen.to(dev)
+    del saved
+    ds = MelAudioSegmentDataset(voc["wavs"]["dev"], segment_size=voc["voc_cfg"].segment_size, shuffle=False)
+    batch = batch_to_device(collate_mel_audio([ds[i] for i in range(min(GAN_B, len(ds)))]), dev)
+    uv_equal = all(torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
+                   for a, b in zip(msd.discriminators[0].convs, orig.msd.discriminators[0].convs))
+    outputs, mismatched = 0, []
+    with torch.no_grad():
+        y, y_hat = batch["audio"], gen(batch["mel"])
+        for name, a, b in (("mpd", mpd, orig.mpd), ("msd", msd, orig.msd)):
+            for fused in (False, True):
+                got, want = a(y, y_hat, fused=fused), b(y, y_hat, fused=fused)
+                flat_got = [t for part in got for item in part for t in (item if isinstance(item, list) else [item])]
+                flat_want = [t for part in want for item in part for t in (item if isinstance(item, list) else [item])]
+                outputs += len(flat_want)
+                mismatched += [(name, fused, i) for i, (p, q) in enumerate(zip(flat_got, flat_want))
+                               if not torch.equal(p, q)]
+    log({"phase": "reference_io", "what": "bin.export_torch --model HiFiGANFull -> compat.torch_import MPD, MSD",
+         "files": [os.path.basename(g_path), os.path.basename(do_path)], "steps": do["steps"], "epoch": do["epoch"],
+         "batch": list(batch["audio"].shape), "outputs_and_feature_maps": outputs, "mismatched": mismatched[:5],
+         "sn_u_v_equal": uv_equal})
+    if mismatched or not uv_equal or do["steps"] != 12 or not outputs:
+        raise AssertionError(f"the g_/do_ pair read back: mismatched {mismatched[:5]}, u and v equal {uv_equal}")
+    del mpd, msd, orig, gen, batch, do
+
+    # iv. utils.profiling: time_step of the synthesis (phase 5 times the same
+    # call with CUDA events a call and prints it beside), and a trace of one
+    step_s = profiling.time_step(synth, iters=N_TIMED, warmup=2, device=dev)
+    trace_dir = os.path.join(root, "trace")
+    with profiling.trace(trace_dir):
+        synth()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        trace_text = f.read()
+    names_mrf = MRF_KERNELS["f32"] in trace_text
+    log({"phase": "reference_io", "what": "utils.profiling", "time_step_ms": 1e3 * step_s,
+         "trace_mb": len(trace_text) / 2**20, "trace_names_mrf_kernel": names_mrf})
+    if not names_mrf and dev.type == "cuda":
+        raise AssertionError(f"the trace {trace_file} does not name {MRF_KERNELS['f32']}")
+
+    # v. 4m's eval images (the trainer draws them only where matplotlib is installed)
+    images_dir = os.path.join(os.path.dirname(cnn_ckpt), "images")
+    images = sorted(os.listdir(images_dir)) if os.path.isdir(images_dir) else []
+    if plotting.available():
+        log({"phase": "reference_io", "what": "EftsTrainer eval images", "images": len(images),
+             "kinds": sorted({n.rsplit("_", 1)[1] for n in images})})
+        if not images or len(images) % 3:
+            raise AssertionError(f"4m's evals drew {images}")
+    else:
+        log({"phase": "reference_io", "what": "EftsTrainer eval images", "matplotlib": "absent",
+             "images": len(images)})
+        if images:
+            raise AssertionError(f"images without matplotlib: {images}")
+    log({"phase": "reference_io", "what": "phase 4p", "seconds": time.perf_counter() - t_phase})
+    return 1e3 * step_s
 
 
 def main(argv=None) -> int:
@@ -2609,6 +2795,9 @@ def main(argv=None) -> int:
         vocoder = vocoder_training_phase(torch, stages, new_launches, trained)
         # 4o. the vocoder corpus on the card, a registry optimizer, the DurationModel
         registry_flash = device_corpus_phase(torch, stages, new_launches, vocoder, trained)
+        # 4p. the reference's file formats, the tooling CLIs, profiling and plots
+        time_step_ms = reference_io_phase(torch, stages, new_launches, vocoder, trained,
+                                          lambda: pipeline.synthesize_fixed(efts, voc, *batches[0], T2))
         del vocoder
     # the flash kernels at the CLI's other lengths, held as phase 3 holds
     # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
@@ -2617,8 +2806,10 @@ def main(argv=None) -> int:
         flash_rows[f"train_cli_t{t}"] = check_flash_backward(torch, fa, t, segmented, dev, bwd_rows)
 
     # 5. timing
-    def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16):
-        """`synthesize_fixed` with the kernels, and with one kernel's plain version."""
+    def time_path(name, model, text, lengths, plain_model, plain_kw, extra, cdt=bf16, time_step_ms=None):
+        """`synthesize_fixed` with the kernels, and with one kernel's plain
+        version; `time_step_ms`, 4p's `utils.profiling.time_step` of the same
+        call, is printed beside and must agree within 10%."""
         t_kernel = time_ms(lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
                                                                      compute_dtype=cdt))
         t_plain = time_ms(lambda: pipeline.synthesize_fixed(
@@ -2628,7 +2819,10 @@ def main(argv=None) -> int:
         dtype = "f32" if cdt is None else "bf16"
         log({"phase": "timing", "what": "synthesize_fixed", "model": name, "B": B, "T1": text.shape[1],
              "T2": T2, "dtype": dtype, "ms": ms, "ms_p25": t_kernel["p25"], "ms_p75": t_kernel["p75"],
-             "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"]})
+             "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"],
+             **({"utils_profiling_time_step_ms": time_step_ms} if time_step_ms else {})})
+        if time_step_ms and abs(time_step_ms / ms - 1) > 0.10:
+            raise AssertionError(f"utils.profiling.time_step gave {time_step_ms} ms against {ms} ms here")
         prof = device_profile(torch, lambda: pipeline.synthesize_fixed(model, voc, text, lengths, T2,
                                                                        compute_dtype=cdt))
         summary = (profile_summary(prof, ms, (*MRF_KERNELS.values(), "flash_fwd_kernel"))
@@ -2641,7 +2835,8 @@ def main(argv=None) -> int:
 
     time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms")
     time_path("efts_transformer", tr, *tr_batches[0], tr_plain, {}, "plain_attention_ms")
-    time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms", cdt=None)
+    time_path("efts_cnn", efts, *batches[0], efts, {"mrf_impl": "plain"}, "plain_mrf_ms", cdt=None,
+              time_step_ms=time_step_ms)
     time_path("efts_transformer", tr, *tr_batches[0], tr, {"mrf_impl": "plain"}, "plain_mrf_ms", cdt=None)
     del efts, tr, tr_plain
 

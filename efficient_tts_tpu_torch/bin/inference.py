@@ -57,9 +57,11 @@ def load_acoustic_model(checkpoint: str, device):
     the `config.yml` beside it. A checkpoint that the trainer wrote also holds
     the training-only modules (and, for EFTS-CNN, weight norm as {v, g}):
     the model is built to take them, and an EFTS-CNN's weight norm is folded
-    for inference as the weight bridge folds it."""
+    for inference as the weight bridge folds it. An EFTS-CNN's res-conv layers
+    are built as the checkpoint holds them, {v, g} or plain (a converted
+    folded reference file), whatever the config's `use_weight_norm`."""
     from efficient_tts_tpu_torch.models import model_class_for
-    from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN
+    from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig, config_for_state_dict
     from efficient_tts_tpu_torch.train.checkpoint import load_checkpoint
     from efficient_tts_tpu_torch.utils.config import load_config, model_config_from_dict
     from efficient_tts_tpu_torch.utils.device import resolve_device
@@ -68,7 +70,10 @@ def load_acoustic_model(checkpoint: str, device):
     config = load_config(os.path.join(os.path.dirname(os.path.abspath(checkpoint)), "config.yml"))
     cfg = model_config_from_dict(config)
     keys = torch.load(os.path.abspath(checkpoint), map_location="cpu", weights_only=True, mmap=True)["params"]
-    model = model_class_for(cfg)(cfg, training_modules=any(k.startswith("mel_encoder.") for k in keys)).to(dev)
+    training_modules = any(k.startswith("mel_encoder.") for k in keys)
+    if training_modules and isinstance(cfg, EftsCNNConfig):
+        cfg = config_for_state_dict(cfg, keys)
+    model = model_class_for(cfg)(cfg, training_modules=training_modules).to(dev)
     load_checkpoint(checkpoint, {"params": model}, load_only_params=True)
     if isinstance(model, EftsCNN):
         model.fold_weight_norm()
@@ -95,7 +100,7 @@ def _load_vocoder(path: str, voc_cfg, device):
     "ema": sd]}): the EMA generator when present, else the generator, folded
     for inference; or a reference generator file ({"generator": sd},
     {"model": sd} or a bare state dict, weight-normed or folded)."""
-    from efficient_tts_tpu_torch import compat
+    from efficient_tts_tpu_torch.compat import torch_import
     from efficient_tts_tpu_torch.models.hifigan_train import HiFiGANTrainGenerator
 
     if os.path.isdir(path):
@@ -109,7 +114,8 @@ def _load_vocoder(path: str, voc_cfg, device):
         gen = HiFiGANTrainGenerator(voc_cfg)
         gen.load_state_dict(state["ema"] if "ema" in state else state["gen"]["params"])
         return gen.fold(device=device)
-    return compat.hifigan_generator_from_state_dict(compat.load_reference_checkpoint(path), voc_cfg, device=device)
+    return torch_import.hifigan_generator_from_state_dict(torch_import.load_reference_checkpoint(path)["model"],
+                                                          voc_cfg, device=device)
 
 
 def _write_wav(path: str, wav: np.ndarray, sr: int) -> None:

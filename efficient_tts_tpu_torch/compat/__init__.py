@@ -32,11 +32,9 @@ table and projection when the config has them):
 batch-norm state {scale, bias, mean, var}: `postnet_from_jax` /
 `postnet_to_jax`.
 
-`hifigan_generator_from_state_dict` loads the reference's own HiFi-GAN
-generator files (a torch state dict, weight-normed or folded, as
-`load_reference_checkpoint` reads them): counterpart of
-`efficient_tts_tpu/compat/torch_import.py`. The reference's EFTS state
-dicts are not read yet.
+The reference's own PyTorch files (EFTS-CNN trainer checkpoints, HiFi-GAN
+generator files, the official recipe's `g_` / `do_` pairs) are read by
+`compat/torch_import.py` and written by `compat/torch_export.py`.
 """
 
 from __future__ import annotations
@@ -436,50 +434,3 @@ def hifigan_generator_from_jax(params: dict, cfg: HiFiGANConfig, device="cuda") 
                     bs.append(conv["b"])
         stage.load(ws, np.stack(bs))
     return model.to(dev).eval()
-
-
-def load_reference_checkpoint(path: str) -> dict:
-    """The model state dict of a reference checkpoint saved with
-    `torch.save`, as {name: numpy array} on the host. Trainer files hold
-    {"model": sd}, HiFi-GAN generator files {"generator": sd}; a bare state
-    dict is taken as it is."""
-    state = torch.load(path, map_location="cpu", weights_only=False)
-    for key in ("model", "generator"):
-        if isinstance(state, dict) and key in state:
-            state = state[key]
-            break
-    return {k: v.detach().cpu().numpy() for k, v in state.items()}
-
-
-def _torch_conv_to_tree(sd: dict, prefix: str, transposed: bool) -> dict:
-    """A torch conv ([out, in, k]; transposed [in, out, k]) as the JAX tree's
-    WIO {v, g, b} or {w, b}. torch's weight norm keeps dim 0: the output
-    channels of a Conv1d, the input channels of a ConvTranspose1d."""
-    perm = (2, 0, 1) if transposed else (2, 1, 0)
-    if prefix + ".weight_v" in sd:
-        g = sd[prefix + ".weight_g"]
-        g = g.reshape(1, g.size, 1) if transposed else g.reshape(1, 1, g.size)
-        return {"v": np.transpose(sd[prefix + ".weight_v"], perm), "g": g, "b": sd[prefix + ".bias"]}
-    return {"w": np.transpose(sd[prefix + ".weight"], perm), "b": sd[prefix + ".bias"]}
-
-
-def hifigan_generator_from_state_dict(sd: dict, cfg: HiFiGANConfig, device="cuda") -> HiFiGANGenerator:
-    """The reference HiFi-GAN generator's state dict (names of
-    `nntts/vocoders/hifigan_model.py`: conv_pre, ups.i, resblocks.i.convs1.j /
-    convs2.j (ResBlock1) or convs.j (ResBlock2), conv_post; '.weight_v' and
-    '.weight_g' or a folded '.weight') -> the port's generator on `device`,
-    weight norm folded here."""
-    sd = {k: np.asarray(v) for k, v in sd.items()}
-    n_ups, n_kernels = len(cfg.upsample_rates), len(cfg.resblock_kernel_sizes)
-    tree = {
-        "conv_pre": _torch_conv_to_tree(sd, "conv_pre", False),
-        "ups": [_torch_conv_to_tree(sd, f"ups.{i}", True) for i in range(n_ups)],
-        "resblocks": [],
-        "conv_post": _torch_conv_to_tree(sd, "conv_post", False),
-    }
-    names = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
-    for i in range(n_ups * n_kernels):
-        n_dil = len(cfg.resblock_dilation_sizes[i % n_kernels])
-        tree["resblocks"].append({name: [_torch_conv_to_tree(sd, f"resblocks.{i}.{name}.{j}", False)
-                                         for j in range(n_dil)] for name in names})
-    return hifigan_generator_from_jax(tree, cfg, device=device)

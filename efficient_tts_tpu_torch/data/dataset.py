@@ -43,6 +43,26 @@ def load_wav(path: str) -> tuple:
     return data, sr
 
 
+def compute_mel(path: str, sampling_rate: int = 22050, max_wav_value: float = 32768.0,
+                mel_config: MelConfig = MelConfig()) -> np.ndarray:
+    """A wav's [T2, num_mels] log-mel as `TextMelDataset` takes it (and caches
+    it in `mel_cache_dir`): decoded and transformed by the native library when
+    it builds, else by scipy and `mel_spectrogram_np`; a wav at another rate
+    than `sampling_rate` raises."""
+    decoded = native.decode_wav(path)
+    if decoded is not None:
+        audio, sr = decoded
+    else:
+        raw, sr = load_wav(path)
+        audio = raw.astype(np.float32) / max_wav_value
+    if sr != sampling_rate:
+        raise ValueError(f"{path}: {sr} Hz != target {sampling_rate} Hz")
+    mel = native.mel_spectrogram(audio, mel_config)
+    if mel is None:
+        mel = mel_spectrogram_np(audio, mel_config)
+    return mel.T
+
+
 class TextMelDataset:
     """LJ-style text and mel pairs, the mel extracted on the fly."""
 
@@ -115,18 +135,7 @@ class TextMelDataset:
             cache = os.path.join(self.mel_cache_dir, base + ".mel.npy")
             if os.path.exists(cache):
                 return self._mem_put(path, np.load(cache))
-        decoded = native.decode_wav(path)
-        if decoded is not None:
-            audio, sr = decoded
-        else:
-            raw, sr = load_wav(path)
-            audio = raw.astype(np.float32) / self.max_wav_value
-        if sr != self.sampling_rate:
-            raise ValueError(f"{path}: {sr} Hz != target {self.sampling_rate} Hz")
-        mel = native.mel_spectrogram(audio, self.mel_config)
-        if mel is None:
-            mel = mel_spectrogram_np(audio, self.mel_config)
-        mel = mel.T  # [T2, n_mels]
+        mel = compute_mel(path, self.sampling_rate, self.max_wav_value, self.mel_config)
         if cache:
             np.save(cache, mel)
         return self._mem_put(path, mel)

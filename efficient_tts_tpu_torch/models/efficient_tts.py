@@ -65,6 +65,13 @@ class EftsCNNConfig:
     compute_dtype: str | None = None
 
 
+def config_for_state_dict(cfg: EftsCNNConfig, keys) -> EftsCNNConfig:
+    """`cfg` with `use_weight_norm` as a training model's state dict (its
+    `keys`) holds the res-conv layers: {v, g} or plain (a folded file
+    converted from the reference's)."""
+    return dataclasses.replace(cfg, use_weight_norm=any(k.endswith(".v") for k in keys))
+
+
 def as_dtype(dtype) -> torch.dtype | None:
     """None / 'float32' / 'f32' -> None (full precision); else a torch dtype."""
     if dtype in (None, "float32", "f32", torch.float32):

@@ -18,9 +18,12 @@ eval and interval saves:
     keep the last `HISTORY` entries only.
 Batches may come as numpy arrays or as tensors already on the device
 (`data/loader.py:device_prefetch`), which the step takes without a copy.
-The JAX trainer's eval plots (`_plot_diagnostics`) are not ported: they
-need `utils/plotting`. Entry points run on `device` ("cuda" by default)
-and raise without a card unless the caller passes device="cpu".
+Each eval draws the JAX trainer's diagnostics from its first batch
+(`_plot_diagnostics`: `outdir/images/step{N}_{i}_{imv,align,mel}.png` for
+up to 4 utterances); where matplotlib is not installed it logs one warning
+per trainer and draws nothing, the evals running on. Entry points run on
+`device` ("cuda" by default) and raise without a card unless the caller
+passes device="cpu".
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class EftsTrainer:
         self.eval_log: deque[dict] = deque(maxlen=self.HISTORY)
         self._train_step = make_train_step(cfg, tx, accum_steps=accum_steps, device=self.device)
         self._eval_step = make_eval_step(cfg, device=self.device)
+        self._plots_warned = False
         os.makedirs(outdir, exist_ok=True)
 
     # -- state ------------------------------------------------------------
@@ -165,13 +169,16 @@ class EftsTrainer:
         """Mean eval metrics, and the alignment's mean per-frame peak over the
         first batch's first 4 utterances (about 1/T1 when it collapsed)."""
         totals = defaultdict(float)
-        peak = None
+        peak = first = first_batch = None
         for batch in self.eval_batches:
             out = self._eval_step(self.state["params"], batch)
-            if peak is None:
-                a = out["reconst_alpha"].cpu().numpy()
+            if first is None:
+                # the first 4 utterances' diagnostics, read back once
+                first = {k: out[k][:4].cpu().numpy() for k in ("imv", "reconst_alpha", "mel_pred")}
+                first_batch = batch
+                a = first["reconst_alpha"]
                 tl, ml = np.asarray(batch["text_lengths"]), np.asarray(batch["mel_lengths"])
-                peak = float(np.mean([a[i, :tl[i], :ml[i]].max(axis=0).mean() for i in range(min(4, a.shape[0]))]))
+                peak = float(np.mean([a[i, :tl[i], :ml[i]].max(axis=0).mean() for i in range(a.shape[0])]))
                 if peak < 2.5 / max(float(tl.max()), 1.0):
                     log.warning("alignment looks collapsed (mean peak %.4f, uniform 1/T1 = %.4f)", peak,
                                 1.0 / max(float(tl.max()), 1.0))
@@ -185,4 +192,31 @@ class EftsTrainer:
         if self.writer is not None:
             for k, v in means.items():
                 self.writer.add_scalar(f"eval/{k}", v, step)
+        if first is not None:
+            self._plot_diagnostics(step, first, first_batch)
         return means
+
+    def _plot_diagnostics(self, step: int, out: dict, batch: dict, max_items: int = 4) -> None:
+        """The JAX trainer's eval images of up to `max_items` utterances: the
+        IMV curve, the reconstructed alignment and the predicted mel beside the
+        target, each cut to the utterance's lengths. Without matplotlib: one
+        warning per trainer, no images."""
+        from efficient_tts_tpu_torch.utils import plotting
+
+        if not plotting.available():
+            if not self._plots_warned:
+                log.warning("matplotlib is not installed: the eval diagnostics (%s/images) are not drawn",
+                            self.outdir)
+                self._plots_warned = True
+            return
+        imgdir = os.path.join(self.outdir, "images")
+        n = min(max_items, out["imv"].shape[0])
+        target = batch["mel"][:n]
+        target = target.cpu().numpy() if isinstance(target, torch.Tensor) else np.asarray(target)
+        for i in range(n):
+            t1, t2 = int(batch["text_lengths"][i]), int(batch["mel_lengths"][i])
+            plotting.save_imv_plot(out["imv"][i][:t2], os.path.join(imgdir, f"step{step}_{i}_imv.png"))
+            plotting.save_alignment_plot(out["reconst_alpha"][i][:t1, :t2],
+                                         os.path.join(imgdir, f"step{step}_{i}_align.png"))
+            plotting.save_mel_comparison(out["mel_pred"][i][:t2], target[i][:t2],
+                                         os.path.join(imgdir, f"step{step}_{i}_mel.png"))

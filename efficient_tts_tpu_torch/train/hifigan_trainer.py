@@ -17,7 +17,8 @@ Runs a GAN `train_step` (`train/hifigan_train_step.py`) until
     and `eval_log` keep their last `HISTORY` entries.
 `load` reconciles the EMA as the JAX trainer does: a checkpoint with an EMA
 that this run does not track drops it with a warning, and a checkpoint
-without one seeds the tracked EMA from the restored generator. Checkpoints
+without one seeds the tracked EMA from the restored generator; one without
+discriminators keeps the state's. Checkpoints
 are `train/checkpoint.py`'s; the JAX package's orbax directories are not
 read.
 """
@@ -76,7 +77,10 @@ class HiFiGANTrainer:
         return path
 
     def load(self, path: str) -> None:
-        """Resume from `path`, reconciling the optional EMA generator."""
+        """Resume from `path`, reconciling the optional EMA generator. A
+        checkpoint without discriminators (a reference generator converted by
+        `bin/convert_checkpoint.py`) leaves them and their optimizer state as
+        they are: the seeded init."""
         saved = ckpt.read_checkpoint(path, ckpt.state_device(self.state))
         tracking, on_disk = "ema" in self.state, "ema" in saved
         if on_disk and not tracking:
@@ -86,7 +90,9 @@ class HiFiGANTrainer:
         elif tracking and not on_disk:
             log.warning("checkpoint predates EMA tracking; seeding the EMA from the restored generator params")
             saved["ema"] = saved["gen"]["params"]
-        ckpt.restore(self.state, saved)
+        if "disc" not in saved:
+            log.warning("%s holds no discriminators: they start from their seeded init", path)
+        self.state.update(ckpt.restore({k: v for k, v in self.state.items() if k in saved}, saved))
 
     def run(self):
         """Train until `train_max_steps`; SIGTERM and Ctrl-C checkpoint first."""

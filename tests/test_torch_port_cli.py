@@ -1,7 +1,7 @@
 """The port's CLIs and what they load, on the CPU: `bin/inference.py` against
 the JAX package's `pipeline.synthesize` on the same weights (the written
 wavs' PCM within one step), the reference vocoder files of
-`compat.hifigan_generator_from_state_dict` against the weight bridge,
+`compat.torch_import.hifigan_generator_from_state_dict` against the weight bridge,
 `bin/serve.build_engine`, and `utils/config.py` against the JAX package's
 config readers. Sizes as in `tests/test_serve.py`."""
 

@@ -49,7 +49,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "dsp.filters", "native", "bin.train", "bench.corpus", "losses.gan", "losses.stft_loss",
                  "train.hifigan_train_step", "train.hifigan_trainer", "bin.train_vocoder", "bin.extract_gta",
                  "models.hifigan_train", "data.device_corpus", "train.torch_optim", "models.duration_model",
-                 "train.duration_train_step", "losses.duration", "nn.length_regulator", "nn.postnet"):
+                 "train.duration_train_step", "losses.duration", "nn.length_regulator", "nn.postnet",
+                 "compat", "compat.torch_import", "compat.torch_export", "bin.convert_checkpoint", "bin.export_torch",
+                 "bin.prepare_data", "bin.prepare_databaker", "bin.data_utils", "utils.plotting",
+                 "utils.profiling"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -233,3 +236,78 @@ def test_device_corpus_and_duration_entry_points_default_to_cuda_and_raise_witho
     state["params"].to("meta")
     with pytest.raises(ValueError, match="holds tensors on meta"):
         make_duration_train_step(cfg, tx, device="cpu")(state, batch)
+
+
+def test_reference_readers_default_to_cuda_and_raise_without_a_card():
+    """`compat.torch_import`'s readers and `utils/profiling.time_step` run on
+    the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.compat import torch_export, torch_import
+    from efficient_tts_tpu_torch.models.hifigan_train import Discriminators
+    from efficient_tts_tpu_torch.utils.profiling import time_step
+
+    model = compat.efts_cnn_from_jax(init.init_efts(0, EFTS_CFG), EFTS_CFG, device="cpu", trainable=True)
+    efts_sd = torch_export.efts_cnn_to_state_dict(model)
+    gen = compat.generator_from_jax(init.init_generator(1, VOC_CFG), VOC_CFG, device="cpu")
+    gen_sd = torch_export.hifigan_generator_to_state_dict(gen)
+    disc = Discriminators()
+    mpd_sd, msd_sd = torch_export.hifigan_mpd_to_state_dict(disc.mpd), torch_export.hifigan_msd_to_state_dict(disc.msd)
+    for call in (lambda: torch_import.efts_cnn_from_state_dict(efts_sd, EFTS_CFG),
+                 lambda: torch_import.efts_cnn_from_state_dict(efts_sd, EFTS_CFG, trainable=True),
+                 lambda: torch_import.hifigan_generator_from_state_dict(gen_sd, VOC_CFG),
+                 lambda: torch_import.hifigan_train_generator_from_state_dict(gen_sd, VOC_CFG),
+                 lambda: torch_import.hifigan_mpd_from_state_dict(mpd_sd),
+                 lambda: torch_import.hifigan_msd_from_state_dict(msd_sd),
+                 lambda: time_step(lambda: None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert torch_import.efts_cnn_from_state_dict(efts_sd, EFTS_CFG, device="cpu").text_key.weight.device.type == "cpu"
+    assert torch_import.hifigan_mpd_from_state_dict(mpd_sd, device="cpu").discriminators[0].conv_post.g.device.type \
+        == "cpu"
+
+
+def test_tooling_clis_are_host_tools_that_touch_no_device(tmp_path, monkeypatch):
+    """The conversion, export and data CLIs run on the host: with any use of
+    CUDA made to raise, each runs to its end."""
+    import yaml
+
+    from efficient_tts_tpu_torch.bin import (convert_checkpoint, data_utils, export_torch, prepare_data,
+                                             prepare_databaker)
+    from efficient_tts_tpu_torch.compat import torch_export
+    from efficient_tts_tpu_torch.train.checkpoint import save_checkpoint
+
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("a host tool initialized CUDA")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_cuda)
+    monkeypatch.setattr(torch.cuda, "is_available", no_cuda)
+    model = compat.efts_cnn_from_jax(init.init_efts(0, EFTS_CFG), EFTS_CFG, device="cpu", trainable=True)
+    pkl = str(tmp_path / "reference.pkl")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in torch_export.efts_cnn_to_state_dict(model).items()},
+                "steps": 5, "epochs": 1}, pkl)
+    config = tmp_path / "model.yml"
+    config.write_text(yaml.safe_dump({"model_name": "EfficientTTSCNN",
+                                      "model_params": {"num_symbols": 10, "symbol_embedding_dim": 8, "n_channels": 8,
+                                                       "n_text_encoder_layer": 1, "n_decoder_layer": 1}}))
+    path = convert_checkpoint.main(["--torch_checkpoint", pkl, "--outdir", str(tmp_path / "imported"),
+                                    "--config", str(config)])
+    export_torch.main(["--checkpoint", path, "--out", str(tmp_path / "exported.pkl"), "--config", str(config)])
+    gen_ckpt = save_checkpoint(str(tmp_path / "voc"), {
+        "gen": {"params": compat.generator_from_jax(init.init_generator(1, VOC_CFG), VOC_CFG, device="cpu")},
+        "step": 3})
+    (tmp_path / "voc" / "config.yml").write_text(yaml.safe_dump({"vocoder_params": {
+        "upsample_initial_channel": 32, "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]]}}))
+    export_torch.main(["--model", "HiFiGANGenerator", "--checkpoint", gen_ckpt, "--out", str(tmp_path / "g.pt"),
+                       "--fold_weight_norm"])
+    files = tmp_path / "all.txt"
+    files.write_text("".join(f"w{i}.wav|text {i}\n" for i in range(6)))
+    prepare_data.main(["--filelist", str(files), "--outdir", str(tmp_path / "data"), "--dev", "1", "--test", "1"])
+    assert data_utils.main(["split", str(files), str(tmp_path / "a.txt"), str(tmp_path / "b.txt")]) == 0
+    (tmp_path / "db" / "ProsodyLabeling").mkdir(parents=True)
+    (tmp_path / "db" / "ProsodyLabeling" / "000001-010000.txt").write_text("000001\tx\n\tka2 er2\n")
+    prepare_databaker.main(["--db_root", str(tmp_path / "db"), "--outdir", str(tmp_path / "databaker"), "--dev", "0",
+                            "--test", "0"])
+    written = (tmp_path / "exported.pkl", tmp_path / "g.pt", tmp_path / "data" / "train.txt",
+               tmp_path / "databaker" / "train.txt")
+    assert all(os.path.exists(p) for p in written)
