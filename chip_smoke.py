@@ -192,6 +192,24 @@ Phases, each of which raises on failure:
         of 5 (printed there beside its CUDA-event time, within 10%) and a
         `trace` of one call naming the f32 MRF kernel; 4m's eval images, or
         a line saying that matplotlib is absent;
+     q. multi-rank synthesis and serving, each rank a process of this script
+        (`--rank_task`) that loads the kernels built above, all on the one
+        card (NCCL refuses two ranks on one device): i. a world of one under
+        NCCL, mesh (1, 1): `synthesize_fixed_sharded` in dp, tp, sp, dp+tp
+        and dp+sp and `synthesize(mesh=)` on 4a's ragged batches, f32 and
+        bf16, each bit-equal to one card with 4a's MRF launches; ii. two
+        ranks under gloo on CUDA tensors: dp (2, 1), sp (1, 2) and tp (1, 2)
+        in f32 against one card's `synthesize_fixed` (dp bit-equal on each
+        rank's block of rows, sp bit-equal, tp and dp's whole batch within
+        JAX's atol 2e-5, rtol 1e-4), each rank's K3 launches (72 under dp
+        and sp, 0 under tp) and peak memory, tp's sharded parameter bytes
+        (half of one card's); the EFTS-Transformer under dp (bf16, flash):
+        4 + 4 forward launches a rank, bit-equal on each rank's block;
+        `TTSEngine(mesh=)` on 3 texts against one rank's engine (atol 5e-5);
+        iii. `bin.serve --data_parallel 2` (gloo, both ranks on card 0) on a
+        checkpoint of the pinned EFTS-CNN: 4 HTTP requests from rank 0, each
+        within one PCM step of the one-card server's engine, then SIGTERM,
+        both ranks exiting 0;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -2197,6 +2215,314 @@ def reference_io_phase(torch, stages, new_launches, voc, trained, synth, device=
     return 1e3 * step_s
 
 
+# ---------------------------------------------------------------------------
+# 4q. multi-rank synthesis and serving: each rank is a process of this script
+# (`--rank_task`), all on the one card
+
+# JAX's bound for sharded synthesis against one device (tests/test_sharded_synthesis.py)
+MR_TOL = {"atol": 2e-5, "rtol": 1e-4}
+MR_MODES = ("dp", "tp", "sp", "dp+tp", "dp+sp")
+# the two-rank meshes of 4q-ii
+MR_MESHES = {"dp": (2, 1), "sp": (1, 2), "tp": (1, 2)}
+# what the ranks' engine serves; 4q-iii's HTTP texts
+MR_TEXTS = ("Hello there.", "A much longer sentence to synthesize, really.", "Hi.",
+            "The quick brown fox jumps over the dog.")
+
+
+def start_ranks(task, world, work, backend):
+    """`world` processes of this script running rank task `task`, joined
+    through a file:// rendezvous in `work`; each writes its log and report there."""
+    import subprocess
+
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(os.path.join(work, f"{task}.rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank_task", task, "--rank", str(r), "--world",
+                 str(world), "--init", f"file://{work}/{task}.rdv", "--out", work, "--backend", backend],
+                stdout=f, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def wait_ranks(procs, logs, timeout=300):
+    """Wait for every rank; when one fails or the time runs out, kill them
+    all and raise with the end of each log."""
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+            for p in procs:
+                p.kill()
+            break
+        time.sleep(0.1)
+    rcs = [p.wait(timeout=60) for p in procs]
+    if rcs != [0] * len(procs):
+        tails = "\n".join(f"--- {path} ---\n{open(path).read()[-6000:]}" for path in logs)
+        raise AssertionError(f"ranks exited {rcs}:\n{tails}")
+
+
+def launch_list(launches):
+    return [[*k, n] for k, n in launches.items()]
+
+
+def param_bytes(module, names):
+    named = {**dict(module.named_parameters()), **dict(module.named_buffers())}
+    return sum(named[n].numel() * named[n].element_size() for n in names)
+
+
+def rank_main(opts) -> int:
+    """One rank of 4q: `one_rank` (a world of one under NCCL) or `two_ranks`
+    (gloo, both ranks on card 0). Writes its report lines to
+    `<out>/<task>.rank<r>.json`; a failed check raises."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from efficient_tts_tpu_torch import _build, compat, init, pipeline
+    from efficient_tts_tpu_torch.bench import serving_load
+    from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+    from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
+    from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.parallel import initialize_multihost, make_mesh, param_specs, rank_device, \
+        shard_module
+    from efficient_tts_tpu_torch.serve import TTSEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the parent built the kernels: a rank loads them and builds none
+    for name in ("mrf_stage", "flash_attention"):
+        if not _build._target(_build.SRC_DIR / f"{name}.cu").exists():
+            raise AssertionError(f"csrc/{name}.cu is not built: run the ranks from chip_smoke.py's phase 4q")
+    # one card: every rank runs on card 0, by name
+    dev = rank_device("cuda", index=0)
+    torch.cuda.set_device(dev)
+    initialize_multihost(opts.init, opts.world, opts.rank, backend=opts.backend, device="cuda")
+    rank, lines = dist.get_rank(), []
+
+    def report(**line):
+        lines.append({"rank": rank, "world": opts.world, "backend": dist.get_backend(), **line})
+
+    voc_cfg = HiFiGANConfig()
+    efts_cfg = EftsCNNConfig(num_symbols=76, dropout_rate=0.0, use_masking=True)
+    stages = [(voc_cfg.upsample_initial_channel // 2 ** (i + 1), 0) for i in range(len(voc_cfg.upsample_rates))]
+    efts = compat.efts_cnn_from_jax(init.init_efts(0, efts_cfg), efts_cfg, device=dev)
+    voc = compat.hifigan_generator_from_jax(init.init_generator(1, voc_cfg), voc_cfg, device=dev)
+    batches = ragged_batches(np.random.default_rng(0), T1, efts_cfg.num_symbols)
+    text, lengths = batches[0]
+
+    if opts.rank_task == "one_rank":
+        # every mode and synthesize(mesh=) on a (1, 1) mesh: bit-equal to one
+        # card, with 4a's MRF launches
+        mesh = make_mesh(1, 1)
+        for dname, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+            ref = pipeline.synthesize_fixed(efts, voc, text, lengths, T2, compute_dtype=cdt, device=dev)
+            for mode in MR_MODES:
+                mrf.reset_launches()
+                got = pipeline.synthesize_fixed_sharded(efts, voc, text, lengths, T2, mesh, mode=mode,
+                                                        compute_dtype=cdt, device=dev)
+                torch.cuda.synchronize()
+                launches, want = dict(mrf.launches), stage_launches(stages, dname, 1)
+                equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+                report(what="synthesize_fixed_sharded", mode=mode, mesh=[1, 1], dtype=dname, bit_equal=equal,
+                       mrf_launches=launch_list(launches), expected=launch_list(want))
+                if not equal or launches != want:
+                    raise AssertionError(f"{mode} {dname} on (1, 1): bit-equal {equal}, launches {launches}")
+            mrf.reset_launches()
+            got = [pipeline.synthesize(efts, voc, t, n, compute_dtype=cdt, device=dev, mesh=mesh) for t, n in batches]
+            launches, want = dict(mrf.launches), stage_launches(stages, dname, len(batches))
+            refs = [pipeline.synthesize(efts, voc, t, n, compute_dtype=cdt, device=dev) for t, n in batches]
+            equal = all(np.array_equal(a, b) for g, r in zip(got, refs) for a, b in zip(g, r))
+            report(what="synthesize(mesh=)", mesh=[1, 1], dtype=dname, batches=len(batches), bit_equal=equal,
+                   buckets=[int(w.shape[1] // voc_cfg.hop_size) for w, _ in got],
+                   mrf_launches=launch_list(launches), expected=launch_list(want))
+            if not equal or launches != want:
+                raise AssertionError(f"synthesize(mesh=) {dname}: bit-equal {equal}, launches {launches}")
+    elif opts.rank_task == "two_ranks":
+        meshes = {shape: make_mesh(*shape) for shape in sorted(set(MR_MESHES.values()))}
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = pipeline.synthesize_fixed(efts, voc, text, lengths, T2, device=dev)
+        torch.cuda.synchronize()
+        one_card_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+        for mode, shape in MR_MESHES.items():
+            mesh = meshes[shape]
+            mrf.reset_launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+            got = pipeline.synthesize_fixed_sharded(efts, voc, text, lengths, T2, mesh, mode=mode, device=dev)
+            torch.cuda.synchronize()
+            launches = dict(mrf.launches)
+            # dp: one batch block a rank; sp: one window a rank; tp: no kernel takes a column slice
+            want = {} if mode == "tp" else stage_launches(stages, "f32", 1)
+            diff = {k: float((a.float() - b.float()).abs().max()) for k, a, b in zip(("wav", "wav_lengths", "mel"),
+                                                                                    got, ref)}
+            equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+            close = torch.equal(got[1], ref[1]) and all(torch.allclose(a, b, **MR_TOL) for a, b in
+                                                        ((got[0], ref[0]), (got[2], ref[2])))
+            line = dict(what="synthesize_fixed_sharded", mode=mode, mesh=list(shape), dtype="f32",
+                        max_abs_diff=diff, bit_equal=equal, within=close, tolerance=MR_TOL,
+                        k3_launches=launch_list(launches), expected=launch_list(want),
+                        peak_mb=torch.cuda.max_memory_allocated(dev) / 2**20, one_card_peak_mb=one_card_peak_mb)
+            # dp against one card on the rank's block of rows, bit for bit: at B=16
+            # cuBLAS sums the f32 linears (text_value, mel_out) in another order
+            # than at B=8, so the whole batch is held to JAX's tolerance
+            exact = equal
+            if mode == "dp":
+                rows = slice(mesh.data_index * B // 2, (mesh.data_index + 1) * B // 2)
+                block = pipeline.synthesize_fixed(efts, voc, text[rows], lengths[rows], T2, device=dev)
+                exact = line["block_bit_equal"] = all(torch.equal(a[rows], b) for a, b in zip(got, block))
+            if mode == "tp":
+                for name, module in (("efts_cnn", efts), ("hifigan_v1", voc)):
+                    sharded = [n for n, a in param_specs(module, mesh).items() if a is not None]
+                    line[f"{name}_sharded_leaf_bytes"] = [param_bytes(module, sharded),
+                                                          param_bytes(shard_module(module, mesh), sharded)]
+            report(**line)
+            # tp's column slices run cuDNN's convs where one card runs K3: JAX's tolerance
+            if not close or launches != want or (mode != "tp" and not exact):
+                raise AssertionError(f"{mode} over two ranks: {line}")
+        # the EFTS-Transformer (4b's model) under dp, bf16, on the flash kernel
+        tr_cfg = EftsTransformerConfig(num_symbols=76, dropout_rate=0.0, sigma=0.01, attn_impl="flash")
+        tr_params = init.init_efts_transformer(2, tr_cfg)
+        tr_params["duration_predictor"]["out"]["b"][:] = 1.3
+        tr = compat.efts_transformer_from_jax(tr_params, tr_cfg, device=dev)
+        tr_text, tr_lengths = ragged_batches(np.random.default_rng(1), T1_TR, tr_cfg.num_symbols)[0]
+        ref = pipeline.synthesize_fixed(tr, voc, tr_text, tr_lengths, T2, compute_dtype=torch.bfloat16, device=dev)
+        mrf.reset_launches()
+        fa.reset_launches()
+        got = pipeline.synthesize_fixed_sharded(tr, voc, tr_text, tr_lengths, T2, meshes[2, 1], mode="dp",
+                                                compute_dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        flash, launches = flash_by_segments(fa.launches), dict(mrf.launches)
+        want_flash = {True: tr_cfg.n_text_encoder_layer, False: tr_cfg.n_decoder_layer}
+        stats = err_stats(got[0], ref[0])
+        rows = slice(meshes[2, 1].data_index * B // 2, (meshes[2, 1].data_index + 1) * B // 2)
+        block = pipeline.synthesize_fixed(tr, voc, tr_text[rows], tr_lengths[rows], T2,
+                                          compute_dtype=torch.bfloat16, device=dev)
+        block_equal = all(torch.equal(a[rows], b) for a, b in zip(got, block))
+        report(what="synthesize_fixed_sharded", model="efts_transformer", mode="dp", mesh=[2, 1], dtype="bf16",
+               T1=T1_TR, bit_equal=all(torch.equal(a, b) for a, b in zip(got, ref)), block_bit_equal=block_equal,
+               wav=stats, tolerance=WAV_TOL, flash_fwd_launches=[[seg, n] for seg, n in flash.items()],
+               mrf_launches=launch_list(launches))
+        if (flash != want_flash or launches != stage_launches(stages, "bf16", 1) or not block_equal
+                or not torch.equal(got[1], ref[1]) or not within(stats, WAV_TOL)):
+            raise AssertionError(f"the transformer under dp: flash {flash}, MRF {launches}, block {block_equal}, "
+                                 f"{stats}")
+        del tr
+        # the engine over the two ranks against one rank's, on bench/serving_load.py's pinned weights
+        cfg, params = serving_load.pinned_efts_params()
+        model = compat.efts_cnn_from_jax(params, cfg, device=dev)
+        mrf.reset_launches()
+        wavs = TTSEngine(model, voc, device=dev, max_batch=SERVE_MAX_BATCH, mesh=meshes[2, 1]).synthesize(
+            list(MR_TEXTS[:3]))
+        launches = dict(mrf.launches)
+        wants = TTSEngine(model, voc, device=dev, max_batch=SERVE_MAX_BATCH).synthesize(list(MR_TEXTS[:3]))
+        diff = max(float(np.abs(a - b).max()) if a.shape == b.shape else math.inf for a, b in zip(wavs, wants))
+        report(what="TTSEngine(mesh=)", mesh=[2, 1], dtype="f32", texts=3, max_abs_diff=diff,
+               bit_equal=all(np.array_equal(a, b) for a, b in zip(wavs, wants)),
+               samples=[len(w) for w in wavs], mrf_launches=launch_list(launches))
+        if diff > 5e-5 or launches != stage_launches(stages, "f32", 1):
+            raise AssertionError(f"the two-rank engine differs from one rank's by {diff}, launches {launches}")
+    else:
+        raise ValueError(f"unknown rank task {opts.rank_task!r}")
+    with open(os.path.join(opts.out, f"{opts.rank_task}.rank{rank}.json"), "w") as f:
+        json.dump(lines, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_rank_phase(torch, new_launches, work):
+    """4q: the multi-rank paths on the one card. i. a world of one under NCCL
+    and ii. two ranks under gloo run at once, each in its own processes;
+    then iii. `bin.serve --data_parallel 2` over two ranks under gloo.
+    Returns the ranks' flash forward launches {path: {segmented: n}}."""
+    import subprocess
+
+    from efficient_tts_tpu_torch.bench import serving_load
+    from efficient_tts_tpu_torch import compat
+    from efficient_tts_tpu_torch.bin import serve as serve_cli
+    from efficient_tts_tpu_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = [("one_rank", start_ranks("one_rank", 1, work, "nccl")),
+            ("two_ranks", start_ranks("two_ranks", 2, work, "gloo"))]
+    try:
+        for _, (procs, logs) in runs:
+            wait_ranks(procs, logs)
+    finally:  # a failed world leaves the other's ranks to kill
+        for _, (procs, _) in runs:
+            for p in procs:
+                p.kill()
+    flash = {}
+    for task, (procs, _) in runs:
+        for r in range(len(procs)):
+            with open(os.path.join(work, f"{task}.rank{r}.json")) as f:
+                for line in json.load(f):
+                    log({"phase": "multi_rank", **line})
+                    tag = (f"multi_rank_{line['backend']}{line['world']}_{line.get('model', 'efts_cnn')}_"
+                           f"{line.get('mode', line['what'])}" + (f"_rank{r}" if line["world"] > 1 else ""))
+                    launches = line.get("mrf_launches", line.get("k3_launches"))
+                    if launches is not None:
+                        new_launches[tag, line["dtype"]] = {(d, c): n for d, c, n in launches}
+                    if "flash_fwd_launches" in line:
+                        flash[tag] = {seg: n for seg, n in line["flash_fwd_launches"]}
+    t_iii = time.perf_counter()
+
+    # iii. the server over two ranks on the one card, on a checkpoint of the
+    # pinned EFTS-CNN (the vocoder: bin.serve's seeded V1)
+    cfg, params = serving_load.pinned_efts_params()
+    ckpt_dir = os.path.join(work, "served")
+    ckpt = save_checkpoint(ckpt_dir, {"params": compat.efts_cnn_from_jax(params, cfg), "opt_state": None, "step": 1})
+    with open(os.path.join(ckpt_dir, "config.yml"), "w") as f:
+        json.dump({"model_name": "EfficientTTSCNN", "model_params": dataclasses.asdict(cfg)}, f)
+    args = ["--checkpoint", ckpt, "--max_batch", "4"]
+    logs, procs = [os.path.join(work, f"serve.rank{r}.log") for r in range(2)], []
+    for r in range(2):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "efficient_tts_tpu_torch.bin.serve", *args, "--data_parallel", "2",
+                 "--coordinator_address", f"file://{work}/serve.rdv", "--num_processes", "2", "--process_id", str(r),
+                 "--dist_backend", "gloo", "--device_index", "0", "--host", "127.0.0.1", "--port", "0"],
+                stdout=f, stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        port, deadline = None, time.monotonic() + 240
+        while port is None:
+            if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+                raise AssertionError("bin.serve --data_parallel 2 did not start:\n"
+                                     + "\n".join(open(path).read()[-6000:] for path in logs))
+            found = [ln for ln in open(logs[0]).read().splitlines() if "serving on 127.0.0.1:" in ln]
+            port = int(found[0].rsplit(":", 1)[1]) if found else time.sleep(0.2)
+        t_ready = time.perf_counter()
+        bodies = []
+        for text in MR_TEXTS:
+            status, body, _, secs = http_post(port, "/synthesize", text)
+            if status != 200:
+                raise AssertionError(f"bin.serve --data_parallel 2 answered {status}: {body[:200]}")
+            bodies.append(wav_pcm(body))
+        procs[0].send_signal(15)  # SIGTERM: rank 0 stops serving and releases rank 1
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if rcs != [0, 0] or "following" not in open(logs[1]).read():
+        raise AssertionError(f"the ranks exited {rcs}:\n" + "\n".join(open(path).read()[-6000:] for path in logs))
+    # the one-card server's waveforms: bin.serve's engine without --data_parallel
+    engine = serve_cli.build_engine(serve_cli.get_parser().parse_args(args))
+    wants = [np.round(np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16) for w in engine.synthesize(list(MR_TEXTS))]
+    steps = [int(np.abs(a.astype(np.int32) - b).max()) if a.shape == b.shape else None for a, b in zip(bodies, wants)]
+    log({"phase": "multi_rank", "what": "bin.serve --data_parallel 2", "backend": "gloo", "world": 2,
+         "requests": len(bodies), "samples": [len(b) for b in bodies], "max_pcm_steps_vs_one_card_server": steps,
+         "exit_codes": rcs, "start_s": t_ready - t_iii, "seconds": time.perf_counter() - t_iii})
+    if any(s is None or s > 1 for s in steps):
+        raise AssertionError(f"bin.serve over two ranks differs from one card's by {steps} PCM steps")
+    del engine
+    log({"phase": "multi_rank", "what": "phase 4q", "seconds": time.perf_counter() - t_phase})
+    return flash
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2206,7 +2532,14 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", help="a directory holding an earlier tree's flash_attention.cu, "
                     "mrf_stage_int8.cu and probe_matmul.cu with their headers, timed in turns with this "
                     "tree's (phase 5b)")
+    # phase 4q runs its ranks as processes of this script
+    for flag in ("--rank_task", "--init", "--out", "--backend"):
+        ap.add_argument(flag, help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
+    if opts.rank_task:
+        return rank_main(opts)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -2799,6 +3132,9 @@ def main(argv=None) -> int:
         time_step_ms = reference_io_phase(torch, stages, new_launches, vocoder, trained,
                                           lambda: pipeline.synthesize_fixed(efts, voc, *batches[0], T2))
         del vocoder
+    # 4q. multi-rank synthesis and serving, the ranks on this card
+    with tempfile.TemporaryDirectory() as work:
+        multi_rank_flash = multi_rank_phase(torch, new_launches, work)
     # the flash kernels at the CLI's other lengths, held as phase 3 holds
     # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
     cli_shapes = sorted({(t, seg) for (_, t, seg) in (*train_cli_flash, *registry_flash)} - set(bwd_shapes))
@@ -3002,7 +3338,8 @@ def main(argv=None) -> int:
         bound, bound_by, flops = flash_bound_ms(q, seg)
         if not training:
             by_path = {"efts_transformer": tr_flash.get(segmented, 0),
-                       "serve_engine_transformer": serve_flash.get(segmented, 0)}
+                       "serve_engine_transformer": serve_flash.get(segmented, 0),
+                       **{path: n.get(segmented, 0) for path, n in multi_rank_flash.items()}}
         else:
             by_path = {"efts_transformer_training": train_launches.get(("fwd", t, True), 0),
                        "train_cli_transformer": train_cli_flash.get(("fwd", t, True), 0),

@@ -66,7 +66,7 @@ def _check_one_device(config: dict) -> None:
     mesh = dict(config.get("mesh") or {})
     if int(mesh.get("data") or 1) != 1 or int(mesh.get("model") or 1) != 1:
         raise NotImplementedError(f"mesh {mesh} asks for more than one device; the port trains on one card "
-                                  "(multi-GPU training is ROADMAP Queue 1 item 11)")
+                                  "(multi-GPU training is ROADMAP Queue 1 item 11b)")
 
 
 def build_model(cfg, seed: int, device):

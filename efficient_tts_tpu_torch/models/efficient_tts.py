@@ -118,8 +118,13 @@ class EftsCNN(nn.Module):
                 getattr(self, name).fold()
         return self.requires_grad_(False).eval()
 
+    def embed(self, text):
+        """The text embedding [B, T1, C] (a tensor-parallel copy gathers its
+        channels here: `parallel/tensor_parallel.py:shard_embedding`)."""
+        return F.embedding(text, self.text_embedding)
+
     def _embed(self, text):
-        h = F.embedding(text, self.text_embedding)
+        h = self.embed(text)
         cdt = as_dtype(self.cfg.compute_dtype)
         return h.to(cdt) if cdt is not None else h
 

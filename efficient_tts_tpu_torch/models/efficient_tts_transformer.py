@@ -91,10 +91,15 @@ class EftsTransformer(nn.Module):
             self.mel_prenet = Linear(cfg.odim, c)
             self.mel_encoder = block(cfg.n_mel_encoder_layer)
 
+    def embed(self, text):
+        """The text embedding [B, T1, C] (a tensor-parallel copy gathers its
+        channels here: `parallel/tensor_parallel.py:shard_embedding`)."""
+        return F.embedding(text, self.text_embedding)
+
     def _text_hidden(self, text, text_mask, gen=None, deterministic: bool = True):
         """text ids [B, T1] -> text encoder output [B, T1, C]."""
         cfg = self.cfg
-        h = F.embedding(text, self.text_embedding)
+        h = self.embed(text)
         cdt = as_dtype(cfg.compute_dtype)
         if cdt is not None:
             h = h.to(cdt)

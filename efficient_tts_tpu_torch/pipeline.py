@@ -16,6 +16,14 @@ batch before fetching this one (`synthesize` is the two back to back).
 `decode_mel_fixed` is the mel half of stage 2, and `stream_vocoder` vocodes
 a host mel window by window for a low time to first audio.
 
+Over several ranks (`parallel/`, one process per rank, each on its own
+`device`): `synthesize_dispatch` / `synthesize` / `fetch` take a `mesh` and
+split the batch over its 'data' axis, and `synthesize_fixed_sharded` runs
+JAX's dp / tp / sp modes and their "dp+tp" / "dp+sp" combinations. Every
+rank calls them alike and gets the whole batch back. Unlike JAX's mesh paths,
+which leave the Pallas kernels for XLA's lowering, each rank runs the
+single-card path with its kernels; only tp's column slices run cuDNN convs.
+
 Every entry point runs on `device` ("cuda" by default) and raises without a
 card unless the caller passes device="cpu". With the default
 compute_dtype=None the decoder and vocoder run in f32, as the JAX package's
@@ -39,6 +47,9 @@ from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, as_dtype
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from efficient_tts_tpu_torch.ops.alignment import boundary_truncation_correction
+from efficient_tts_tpu_torch.parallel.mesh import MODEL_AXIS
+from efficient_tts_tpu_torch.parallel.sharding import gather_batch, shard_module, split_batch
+from efficient_tts_tpu_torch.parallel.tensor_parallel import all_gather
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.masks import bucket_length, sequence_mask
 from efficient_tts_tpu_torch.utils.precision import full_f32
@@ -166,10 +177,14 @@ class Dispatched:
     on the card, a pinned host tensor that a copy on a side stream fills and
     the event that copy records when done; on the CPU the result itself and
     no event. Each dispatch has its own buffer, released when the last
-    reference to it (the handle or the fetched array) goes."""
+    reference to it (the handle or the fetched array) goes. Under a mesh,
+    `gather` instead holds the pending all-gather of every data row's block
+    (the work and the list it fills), issued at dispatch so that every rank
+    issues its collectives in one order."""
 
-    wav: torch.Tensor
+    wav: torch.Tensor | None
     done: torch.cuda.Event | None
+    gather: tuple | None = None
 
 
 def _copy_to_host(wav: torch.Tensor) -> Dispatched:
@@ -194,7 +209,13 @@ def _copy_to_host(wav: torch.Tensor) -> Dispatched:
 
 def fetch(handle: Dispatched) -> np.ndarray:
     """The waveform of `synthesize_dispatch`, once its copy is done (it waits
-    for that copy's event alone, not for work queued since)."""
+    for that copy's event alone, not for work queued since). Under a mesh it
+    completes the gather of the data rows' blocks, as JAX's `_to_host` does
+    with `process_allgather`: every rank gets the whole batch."""
+    if handle.gather is not None:
+        work, parts = handle.gather
+        work.wait()
+        return torch.cat(parts).cpu().numpy()
     if handle.done is not None:
         handle.done.synchronize()
     return handle.wav.numpy()
@@ -213,6 +234,7 @@ def synthesize_dispatch(
     output: str = "f32",
     timings: dict | None = None,
     device="cuda",
+    mesh=None,
 ):
     """Dispatch batched synthesis without waiting for the waveform: stage 1
     and its one readback (the mel lengths, which pick the bucket t2), then
@@ -221,18 +243,32 @@ def synthesize_dispatch(
     waveform [B, t2*hop]. The lengths are clip(mel_lengths, 1, t2) * hop,
     computed on the host from the readback, as stage 2 computes them. If
     `timings` is a dict it receives the wall-clock splits "stage1_s" (to the
-    readback) and "dispatch_s" (queueing stage 2 and the copy), and "t2"."""
+    readback) and "dispatch_s" (queueing stage 2 and the copy), and "t2".
+
+    With a `mesh` every rank passes the whole batch (B divisible by the
+    data extent) and synthesizes its data index's block of rows. The mel
+    lengths are gathered over the data group before the bucket is picked, so
+    every rank picks the one bucket a single card would; the lengths
+    returned are the whole batch's, and `fetch` gathers the waveform."""
     _check_output(output)
     t_a = time.perf_counter()
     text, text_lengths = _inputs(model, voc, text, text_lengths, device)
+    if mesh is not None:
+        text, text_lengths = split_batch(text, mesh), split_batch(text_lengths, mesh)
     with _full_f32():
         e, value, tmask = _stage1(model, text, text_lengths, duration_correction)
-        mel_lengths = _mel_lengths(e, text_lengths).cpu().numpy()
+        mel_lengths = _mel_lengths(e, text_lengths)
+        if mesh is not None:
+            mel_lengths = gather_batch(mel_lengths, mesh)
+        mel_lengths = mel_lengths.cpu().numpy()
         t_b = time.perf_counter()
         t2 = min(bucket_length(int(mel_lengths.max()), bucket_multiple), max_t2)
         wav, _, _ = _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2,
                                        as_dtype(compute_dtype), mrf_impl, output)
-        handle = _copy_to_host(wav)
+        if mesh is None:
+            handle = _copy_to_host(wav)
+        else:
+            handle = Dispatched(None, None, all_gather(wav, mesh.data_group, async_op=True))
     wav_lengths = np.clip(mel_lengths, 1, t2).astype(np.int32) * voc.cfg.hop_size
     if timings is not None:
         timings.update(stage1_s=t_b - t_a, dispatch_s=time.perf_counter() - t_b, t2=t2)
@@ -251,11 +287,14 @@ def synthesize(
     duration_correction=False,
     output: str = "f32",
     device="cuda",
+    mesh=None,
 ):
     """Host-driven batched synthesis with automatic bucket choice:
     `synthesize_dispatch`, then `fetch`. Returns (wav [B, t2*hop] numpy,
     wav_lengths [B] int32 numpy); the lengths come from the stage-1
-    readback, and stage 1 runs once.
+    readback, and stage 1 runs once. With a `mesh` the batch is split over
+    its 'data' axis (the data extent must divide B) and every rank gets the
+    whole result.
 
     The bucket t2 is the longest length rounded up to `bucket_multiple`.
     It decides which decoder attention calls of an EFTS-Transformer are
@@ -265,7 +304,7 @@ def synthesize(
     handle, wav_lengths = synthesize_dispatch(
         model, voc, text, text_lengths, bucket_multiple=bucket_multiple, max_t2=max_t2,
         compute_dtype=compute_dtype, mrf_impl=mrf_impl, duration_correction=duration_correction,
-        output=output, device=device)
+        output=output, device=device, mesh=mesh)
     return fetch(handle), wav_lengths
 
 
@@ -319,3 +358,86 @@ def _stream(voc, mel, dev, chunk_frames, overlap_frames, compute_dtype, mrf_impl
             seg, keep_lo = mel[lo - ov: hi + ov], ov
         wav = _vocode_window(voc, seg, dev, compute_dtype, mrf_impl)
         yield wav[keep_lo * hop: (keep_lo + hi - lo) * hop].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# multi-rank synthesis: dp / tp / sp over a ('data', 'model') mesh of ranks
+
+
+def _mode_tokens(mode: str) -> set:
+    tokens = set(mode.split("+"))
+    if tokens - {"dp", "tp", "sp"} or not mode:
+        raise ValueError(f"mode {mode!r}: expected '+'-joined tokens from dp/tp/sp")
+    return tokens
+
+
+def _vocode_frames(voc: HiFiGANGenerator, mel: torch.Tensor, mesh, cdt, overlap_frames: int = 24) -> torch.Tensor:
+    """sp: [B, t2, odim] -> [B, t2 * hop] on every rank of the model group.
+    Rank j of m vocodes frames [j t2 / m, (j + 1) t2 / m) in a window that
+    reaches `overlap_frames` further on each side where the mel goes on, and
+    keeps that window's interior; the generator's receptive field is about
+    14 frames a side, so 24 make each interior the full pass's, as in
+    `models/hifigan.py:generator_chunked`, whose windows these are where m
+    divides t2 (the first starts at the true left edge, the last ends at the
+    true right edge, so their zero padding is the full pass's). The
+    interiors, padded to the longest, are gathered along time."""
+    t, hop, ov = mel.shape[1], voc.cfg.total_upsampling, overlap_frames
+    m = mesh.shape[MODEL_AXIS]
+    bounds = [(i * t // m, (i + 1) * t // m) for i in range(m)]
+    lo, hi = bounds[mesh.model_index]
+    w_lo, w_hi = max(0, lo - ov), min(t, hi + ov)
+    wav = voc(mel[:, w_lo:w_hi].contiguous(), compute_dtype=cdt)
+    longest = max(b - a for a, b in bounds) * hop
+    piece = torch.zeros((wav.shape[0], longest), dtype=wav.dtype, device=wav.device)
+    piece[:, : (hi - lo) * hop] = wav[:, (lo - w_lo) * hop: (hi - w_lo) * hop]
+    parts = all_gather(piece, mesh.model_group)
+    return torch.cat([p[:, : (b - a) * hop] for p, (a, b) in zip(parts, bounds)], dim=1)
+
+
+def synthesize_fixed_sharded(
+    model: AcousticModel,
+    voc: HiFiGANGenerator,
+    text,
+    text_lengths,
+    t2: int,
+    mesh,
+    mode: str = "dp",
+    compute_dtype=None,
+    device="cuda",
+):
+    """Multi-rank synthesis at a static mel length t2 (counterpart of
+    `efficient_tts_tpu/pipeline.py:synthesize_fixed_sharded`). Every rank of
+    the mesh calls it with the whole batch and the whole models, each on the
+    rank's `device`, and gets (wav [B, t2*hop], wav_lengths [B], mel [B, t2,
+    odim]) whole. `mode` is a '+'-joined set of:
+
+      "dp"  the batch over the 'data' axis: each data row synthesizes its
+            block of rows, gathered at the end;
+      "tp"  parameter channels over 'model' (`parallel/sharding.py`'s rule):
+            each rank holds its slice of every sharded leaf and gathers the
+            channels after each sharded layer (`parallel/tensor_parallel.py`);
+      "sp"  the mel frames over 'model': the acoustic model runs whole on
+            every rank and the generator on the rank's share of the frames
+            (`_vocode_frames`), gathered along time;
+      "dp+tp", "dp+sp"  their combinations on a (data, model) mesh.
+
+    dp and sp run the single-card path, the MRF kernels included, on every
+    rank; tp's column slices run cuDNN convs, where JAX's tp lowering reaches
+    no Pallas kernel either. No duration correction, as in JAX."""
+    tokens = _mode_tokens(mode)
+    text, text_lengths = _inputs(model, voc, text, text_lengths, device)
+    if "dp" in tokens:
+        text, text_lengths = split_batch(text, mesh), split_batch(text_lengths, mesh)
+    if "tp" in tokens:
+        model, voc = shard_module(model, mesh), shard_module(voc, mesh)
+    cdt = as_dtype(compute_dtype)
+    with _full_f32():
+        e, value, tmask = _stage1(model, text, text_lengths, False)
+        mel, mel_lengths = _decode(model, e, value, tmask, text_lengths, t2, cdt)
+        wav = _vocode_frames(voc, mel, mesh, cdt) if "sp" in tokens else voc(mel, compute_dtype=cdt)
+        hop = voc.cfg.hop_size
+        wav_lengths = mel_lengths * hop
+        wav = wav * sequence_mask(wav_lengths, t2 * hop, dtype=wav.dtype)
+        if "dp" in tokens:
+            wav, wav_lengths, mel = (gather_batch(x, mesh) for x in (wav, wav_lengths, mel))
+    return wav, wav_lengths, mel

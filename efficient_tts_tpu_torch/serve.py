@@ -30,6 +30,16 @@ switches between them on its own. There is no compilation per shape here:
 build, each MRF stage's kernel weights and the pinned-memory pool are made
 before the first request.
 
+Over several ranks (``mesh``, `parallel/mesh.py`) every rank builds the
+engine alike and calls it with the same requests (SPMD): each micro-batch,
+its batch bucket rounded up to a multiple of the data extent, is split over
+the mesh's 'data' axis (`pipeline.synthesize_dispatch(mesh=)`) and every rank
+gets every waveform. The JAX engine serves "xla" under a mesh, since GSPMD
+cannot partition a Pallas call; here each rank runs its own kernels on its
+own rows, so ``mrf_impl`` stays what the caller chose. For a server, the
+root rank `lead`s: it broadcasts each micro-batch it dispatches to the other
+ranks, which `follow` and dispatch it too, until `release_followers`.
+
 Device work comes from several threads at once (the gather and fetch
 threads, and HTTP handlers streaming outside the engine lock). The engine
 lock serializes dispatches; the counters are kept under locks.
@@ -49,10 +59,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from efficient_tts_tpu_torch import pipeline
 from efficient_tts_tpu_torch.models import model_class_for
 from efficient_tts_tpu_torch.models.efficient_tts import as_dtype
+from efficient_tts_tpu_torch.parallel.sharding import split_batch
 from efficient_tts_tpu_torch.text import phones_to_sequence, text_to_sequence
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.masks import bucket_length
@@ -160,6 +172,7 @@ class TTSEngine:
         pipeline_fetch: bool = True,
         batch_bucketing: bool = True,
         detailed_timing: bool = False,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         if not isinstance(model, model_class_for(model.cfg)):
@@ -192,6 +205,12 @@ class TTSEngine:
         self.pipeline_fetch = bool(pipeline_fetch)
         self.batch_bucketing = bool(batch_bucketing)
         self.detailed_timing = bool(detailed_timing)
+        # micro-batches split over the mesh's 'data' axis (its extent must divide max_batch)
+        self.mesh = mesh
+        if mesh is not None and self.max_batch % mesh.shape["data"]:
+            raise ValueError(f"max_batch={self.max_batch} not divisible by the mesh data extent {mesh.shape['data']}")
+        self._leading = False
+        self._released = False
         self.stats = EngineStats()
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
@@ -244,7 +263,15 @@ class TTSEngine:
         bb = self.max_batch if not self.batch_bucketing else 1
         while bb < n:
             bb *= 2
-        return min(bb, self.max_batch)
+        return self._data_multiple(min(bb, self.max_batch))
+
+    def _data_multiple(self, bb: int) -> int:
+        """bb rounded up to a multiple of the mesh's data extent (at most
+        ``max_batch``), so that the batch splits over it."""
+        if self.mesh is None:
+            return bb
+        d = self.mesh.shape["data"]
+        return min(-(-bb // d) * d, self.max_batch)
 
     def _dispatch_batch(self, seqs: list) -> _BatchHandle:
         """Pad and bucket a micro-batch and dispatch it, without waiting for
@@ -263,16 +290,25 @@ class TTSEngine:
             text[i, : len(s)] = s
         full_lengths = np.ones((bb,), np.int32)
         full_lengths[:n] = lengths
+        return self._dispatch(text, full_lengths, n)
 
+    def _dispatch(self, text: np.ndarray, lengths: np.ndarray, n: int) -> _BatchHandle:
+        """Dispatch a padded micro-batch whose first n rows are requests."""
         timings: dict = {}
         t0 = time.perf_counter()
         with self._lock:
             t_lock = time.perf_counter()
+            if self._released:
+                raise RuntimeError("this engine released its followers and dispatches no more batches")
+            if self._leading:
+                self._broadcast(torch.tensor([*text.shape, 0], dtype=torch.int64, device=self.device))
+                for a in (text, lengths):
+                    self._broadcast(torch.as_tensor(a, dtype=torch.int64, device=self.device))
             wav, wav_lengths = pipeline.synthesize_dispatch(
-                self.model, self.vocoder, text, full_lengths,
+                self.model, self.vocoder, text, lengths,
                 bucket_multiple=self.t2_multiple, max_t2=self.max_t2, compute_dtype=self.compute_dtype,
                 mrf_impl=self.mrf_impl, output="pcm16" if self.pcm16_transfer else "f32",
-                timings=timings, device=self.device)
+                timings=timings, device=self.device, mesh=self.mesh)
             if self.detailed_timing and self.device.type == "cuda":
                 # attribution mode: wait for the device so the fetch measures the copy alone
                 t_d = time.perf_counter()
@@ -373,7 +409,8 @@ class TTSEngine:
         while bb < self.max_batch:
             buckets.append(bb)
             bb *= 2
-        return buckets + [self.max_batch]
+        # under a mesh, the grid that rounding to the data extent gives
+        return sorted({self._data_multiple(b) for b in buckets + [self.max_batch]})
 
     def warmup(self, t1_lengths=(16, 64), text_id: int = 1, batch_buckets=None, t2_neighbors: int = 1) -> None:
         """Run the bucket grid the dispatcher serves once, before the first
@@ -407,6 +444,8 @@ class TTSEngine:
                 text = np.full((nb, t1b), 0, np.int32)
                 text[:, :t1] = text_id
                 lengths = np.full((nb,), t1, np.int32)
+                if self.mesh is not None:  # this rank's rows, as a dispatch gives them
+                    text, lengths = split_batch(text, self.mesh), split_batch(lengths, self.mesh)
                 for t2 in t2s:
                     pipeline.synthesize_fixed(
                         self.model, self.vocoder, text, lengths, t2, compute_dtype=self.compute_dtype,
@@ -418,6 +457,43 @@ class TTSEngine:
     def reset_stats(self) -> None:
         with self._stats_lock:
             self.stats = EngineStats()
+
+    # -- serving over ranks --------------------------------------------------
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        dist.broadcast(t, src=self.mesh.root, group=self.mesh.group)
+        return t
+
+    def lead(self) -> None:
+        """On the mesh's root rank (the one that serves): from now on each
+        micro-batch this engine dispatches is first broadcast to the other
+        ranks, a header (batch bucket, text bucket, stop flag), then the
+        padded ids and lengths."""
+        if self.mesh is None or self.mesh.rank != self.mesh.root:
+            raise RuntimeError("only the root rank of a mesh leads")
+        self._leading = True
+
+    def follow(self) -> int:
+        """On every other rank of the mesh: receive each micro-batch the
+        leader dispatches and dispatch and fetch it alike, until the leader
+        `release_followers`. Returns the number of batches followed."""
+        n = 0
+        while True:
+            bb, t1, stop = self._broadcast(torch.zeros(3, dtype=torch.int64, device=self.device)).tolist()
+            if stop:
+                return n
+            text = self._broadcast(torch.zeros((bb, t1), dtype=torch.int64, device=self.device))
+            lengths = self._broadcast(torch.zeros(bb, dtype=torch.int64, device=self.device))
+            self._fetch_batch(self._dispatch(text.cpu().numpy(), lengths.cpu().numpy(), 0))
+            n += 1
+
+    def release_followers(self) -> None:
+        """Broadcast the stop flag: the followers' `follow` returns. The
+        engine dispatches nothing after it."""
+        with self._lock:
+            if self._leading and not self._released:
+                self._broadcast(torch.tensor([0, 0, 1], dtype=torch.int64, device=self.device))
+            self._released = True
 
 
 class DynamicBatcher:

@@ -15,6 +15,7 @@ from efficient_tts_tpu_torch import compat, init, pipeline
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, generator_chunked
+from efficient_tts_tpu_torch.serve import TTSEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +53,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "train.duration_train_step", "losses.duration", "nn.length_regulator", "nn.postnet",
                  "compat", "compat.torch_import", "compat.torch_export", "bin.convert_checkpoint", "bin.export_torch",
                  "bin.prepare_data", "bin.prepare_databaker", "bin.data_utils", "utils.plotting",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
+                 "parallel.tensor_parallel"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -311,3 +313,29 @@ def test_tooling_clis_are_host_tools_that_touch_no_device(tmp_path, monkeypatch)
     written = (tmp_path / "exported.pkl", tmp_path / "g.pt", tmp_path / "data" / "train.txt",
                tmp_path / "databaker" / "train.txt")
     assert all(os.path.exists(p) for p in written)
+
+
+def test_parallel_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.parallel import initialize_multihost, rank_device
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    em = compat.efts_cnn_from_jax(init.init_efts(0, EFTS_CFG), EFTS_CFG, device="cpu")
+    vm = compat.hifigan_generator_from_jax(init.init_generator(1, VOC_CFG), VOC_CFG, device="cpu")
+    text, lengths = np.ones((2, 4), np.int32), np.array([4, 3], np.int32)
+    for call in (initialize_multihost, rank_device,
+                 lambda: initialize_multihost("localhost:1", 2, 0),
+                 lambda: rank_device(index=0),
+                 lambda: pipeline.synthesize_fixed_sharded(em, vm, text, lengths, 32, None),
+                 lambda: pipeline.synthesize(em, vm, text, lengths, mesh=None),
+                 lambda: TTSEngine(em, vm, mesh=None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert rank_device("cpu").type == "cpu"
+    # asked for the CPU, it still needs a rendezvous: none is made up
+    with pytest.raises(RuntimeError, match="torchrun"):
+        initialize_multihost(device="cpu")
+    with pytest.raises(ValueError, match="together"):
+        initialize_multihost("localhost:1", None, 0, device="cpu")
