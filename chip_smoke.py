@@ -210,6 +210,24 @@ Phases, each of which raises on failure:
         checkpoint of the pinned EFTS-CNN: 4 HTTP requests from rank 0, each
         within one PCM step of the one-card server's engine, then SIGTERM,
         both ranks exiting 0;
+     r. training over ranks, each rank a process of this script, all on the
+        one card: i. a world of one under NCCL, mesh (1, 1): EFTS-CNN (dp,
+        tp, sp; B=16), the EFTS-Transformer (dp, tp; B=8, flash) and the
+        HiFi-GAN V1 GAN step (dp, tp; B=2), each step bit-equal to one
+        card's; ii. two ranks under gloo at published widths: EFTS-CNN at
+        B=128 (dp (2, 1), tp (1, 2), sp (1, 2)), the EFTS-Transformer at
+        B=64, T1=128, T2=512 (dp, tp; K4's forward, dkv and dq launches
+        counted on each rank) and the GAN at B=16, segment 8192 (dp, tp),
+        and four ranks, each model in dp+tp (2, 2); each step held to one
+        card's on rank 0 with the CPU tests' bounds (metrics rtol 1e-5;
+        first moments and updates, see `MRT_TOL`; the transformer's, whose
+        K4 calls round to TF32, with 4c's), the ranks' gathered states
+        equal (sha256), each rank's peak memory;
+        iii. `bin.train` (EFTS-CNN, the char yaml's widths, batch 8) and
+        `bin.train_vocoder` (V1, batch 4, host path, an eval on rank 0
+        through K3) over two ranks, 2 steps each: equal parameters on both
+        ranks, then rank 0's checkpoints resumed on this card for a third
+        step;
   5. timing with CUDA events (median and quartiles of 20 runs after
      warmup): each path's `synthesize_fixed`, the training step with the
      kernels, with the plain attention and with dropout 0.1, their device
@@ -2523,6 +2541,419 @@ def multi_rank_phase(torch, new_launches, work):
     return flash
 
 
+# 4r. training over ranks: each rank a process of this script (`--rank_task
+# train_*`), all on the one card
+
+# the CPU tests' bounds against one process (tests/test_torch_port_parallel_training.py):
+# metrics; each first-moment leaf (the clipped, decayed gradient) within
+# `mu` of its own max plus `mu_top` of the tree's; the updates, where that
+# moment is above 1e-3 of its leaf's max and 1e-5 of the tree's, within
+# `update` of the leaf's largest update plus 2 ulps of its largest parameter
+# (the CPU tests take 1e-7 of the tree's max at B=8, T2=64; at B=128, T2=512
+# a leaf's sums run over 128 times the frames, summed by rank then across
+# ranks, and a leaf a thousandth of the largest, as the alignment's text key,
+# moves by 1e-6 of the largest, as measured on one H100)
+MRT_TOL = {"metric_rel": 1e-5, "mu": 1e-4, "mu_top": 1e-6, "update": 1e-4}
+# (the EFTS-Transformer's step takes 4c's and 4o-iii's bounds instead:
+# `mrt_compare_tf32`; on one H100 its dp+tp moments came up to
+# 5.5 times these)
+# the GAN's moments: the generator's gradient reaches the waveform through sums
+# with heavy cancellation (gen), the discriminators' do not (disc); the
+# generator's Adam update is a sign and is not compared
+MRT_GAN_MU = {"gen": (1e-3, 2e-4), "disc": (1e-4, 1e-6)}
+MRT_CNN_B = 128  # the EFTS-CNN yamls' batch
+MRT_MODES = {"efts_cnn": ("dp", "tp", "sp"), "efts_transformer": ("dp", "tp"), "hifigan_v1": ("dp", "tp")}
+MRT_MESHES = {"dp": (2, 1), "tp": (1, 2), "sp": (1, 2), "dp+tp": (2, 2)}
+# each multi-rank task's world and modes: dp+tp takes four ranks
+MRT_WORLDS = {"train_two_ranks": (2, MRT_MODES),
+              "train_four_ranks": (4, {name: ("dp+tp",) for name in MRT_MODES})}
+# the yaml's optimizer, its warmup cut to 4 steps so a first update is not lost in rounding
+MRT_OPTIMIZER = {**YAML_OPTIMIZER, "scheduler_params": {"warmup_steps": 4}}
+
+
+def mrt_batch(name, b):
+    """The model's seeded batch of `b` rows: EFTS-CNN at T1=96, T2=512; the
+    EFTS-Transformer at 4c's T1=128, T2=512; the GAN's V1 segments of 8192
+    (tones in noise) with both mels."""
+    rng = np.random.default_rng(7)
+    if name == "efts_transformer":
+        full = train_batch(rng, 76, 80)
+        return {k: v[:b] for k, v in full.items()}
+    if name == "efts_cnn":
+        tl = rng.integers(T1 // 2, T1 + 1, b).astype(np.int32)
+        ml = rng.integers(T2 // 2, T2 + 1, b).astype(np.int32)
+        tl[0], ml[0] = T1, T2
+        text = np.zeros((b, T1), np.int32)
+        for i, n in enumerate(tl):
+            text[i, :n] = rng.integers(1, 76, n)
+        mel = rng.standard_normal((b, T2, 80)).astype(np.float32) * (np.arange(T2)[None, :, None] < ml[:, None, None])
+        return {"text": text, "text_lengths": tl, "mel": mel, "mel_lengths": ml}
+    from efficient_tts_tpu_torch.dsp.mel import MelConfig, loss_mel_config, mel_spectrogram_np
+
+    t = np.arange(8192) / 22050.0
+    audio = (0.5 * np.sin(2 * np.pi * rng.uniform(100, 400, (b, 1)) * t)
+             + 0.01 * rng.standard_normal((b, 8192))).astype(np.float32)
+    return {"audio": audio, "mel": np.stack([mel_spectrogram_np(a, MelConfig()).T for a in audio]),
+            "mel_loss": np.stack([mel_spectrogram_np(a, loss_mel_config(MelConfig(), None)).T for a in audio])}
+
+
+def mrt_setup(name, dev, mesh=None, sequence_parallel=False):
+    """(state, step) of `name` at its published widths from its seeded init:
+    one card's without a mesh, else this rank's on `mesh`."""
+    from efficient_tts_tpu_torch import compat, init
+    from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
+    from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
+    from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
+    from efficient_tts_tpu_torch.train import efts_train_step as ets
+    from efficient_tts_tpu_torch.train import hifigan_train_step as hts
+    from efficient_tts_tpu_torch.train.optim import HiFiGANAdam, optimizer_from_dict
+    from efficient_tts_tpu_torch.train.state import create_state
+
+    if name == "hifigan_v1":
+        cfg, tx = HiFiGANConfig(), HiFiGANAdam()
+        state = (hts.init_gan_state(0, cfg, tx, tx, device=dev) if mesh is None
+                 else hts.shard_gan_state(0, cfg, tx, tx, mesh, device=dev))
+        return state, hts.make_gan_train_step(cfg, tx, tx, device=dev, mesh=mesh)
+    if name == "efts_cnn":
+        cfg = EftsCNNConfig(num_symbols=76, dropout_rate=0.0, use_masking=True)
+        model = compat.efts_cnn_from_jax(init.init_efts(0, cfg), cfg, device=dev, trainable=True)
+    else:
+        cfg = EftsTransformerConfig(num_symbols=76, dropout_rate=0.0, sigma=0.01, attn_impl="flash")
+        model = compat.efts_transformer_from_jax(init.init_efts_transformer(3, cfg), cfg, device=dev, trainable=True)
+    tx = optimizer_from_dict(MRT_OPTIMIZER)
+    if mesh is None:
+        return create_state(model, tx), ets.make_train_step(cfg, tx, device=dev)
+    return (ets.shard_state(model, tx, mesh, sequence_parallel, device=dev),
+            ets.make_train_step(cfg, tx, mesh=mesh, sequence_parallel=sequence_parallel, device=dev))
+
+
+def mrt_params(state, mesh=None):
+    """{side: ({name: parameter}, {name: first moment})} of a train state on
+    the CPU, gathered into the one-card state under a mesh (collective)."""
+    from efficient_tts_tpu_torch.parallel import gather_train_state
+    from efficient_tts_tpu_torch.train.checkpoint import _saved
+
+    whole = _saved(state) if mesh is None else gather_train_state(state, mesh)
+    sides = {"gen": whole["gen"], "disc": whole["disc"]} if "gen" in whole else {"model": whole}
+
+    def cpu(d):
+        return {k: v.detach().float().cpu() for k, v in d.items()}
+
+    return {side: (cpu(s["params"]), cpu(s["opt_state"]["mu"])) for side, s in sides.items()}
+
+
+def mrt_compare_tf32(got, ref, p0) -> tuple[dict, list]:
+    """The EFTS-Transformer's step over ranks against one card's. Its K4
+    calls take TF32 operands, and their inputs differ from one card's in the
+    last bit (the linears sum in another order at another M or N), so
+    a TF32 rounding may move: the bounds of 4c and 4o-iii, which hold the
+    card's kernels against a plain reference (`TRAIN_TOL`, `UPDATE_TOL`)."""
+    (params, mu), (r_params, r_mu) = got["model"], ref["model"]
+    whole = math.sqrt(sum(float(m.double().square().sum()) for m in r_mu.values()))
+    worst, fails = {"moment_rel_l2": (0.0, ""), "update_rel": (0.0, "")}, []
+    for k, m in r_mu.items():
+        err, own = float((mu[k] - m).double().norm()), float(m.double().norm())
+        worst["moment_rel_l2"] = max(worst["moment_rel_l2"], (err / max(own, 1e-30), k))
+        if err > TRAIN_TOL["leaf_rel"] * own + TRAIN_TOL["leaf_abs_of_global"] * whole:
+            fails.append(("model", k, "moment", err, own))
+        if own < UPDATE_TOL["leaf_above_of_global"] * whole:
+            continue
+        sure = m.abs() >= UPDATE_TOL["above_of_leaf_max"] * float(m.abs().max())
+        d_got, d_ref = (params[k] - p0["model"][k])[sure], (r_params[k] - p0["model"][k])[sure]
+        rel = float(((d_got - d_ref).abs() / d_ref.abs().clamp(min=1e-30)).max())
+        worst["update_rel"] = max(worst["update_rel"], (rel, k))
+        if rel > UPDATE_TOL["update_rel"]:
+            fails.append(("model", k, "update", rel, UPDATE_TOL["update_rel"]))
+    return {"model": worst}, fails
+
+
+def mrt_compare(got, ref, p0, gan: bool) -> tuple[dict, list]:
+    """The step over ranks (`got`, `mrt_params`) against one card's (`ref`)
+    from the same parameters `p0`: worst errors and the failing leaves."""
+    import torch
+
+    worst, fails = {}, []
+    for side, (params, mu) in got.items():
+        r_params, r_mu = ref[side]
+        rtol, gtol = MRT_GAN_MU[side] if gan else (MRT_TOL["mu"], MRT_TOL["mu_top"])
+        top = max(float(v.abs().max()) for v in r_mu.values())
+        up_top = max(float((r_params[k] - p0[side][k]).abs().max()) for k in r_mu)
+        w_mu = w_up = 0.0
+        for k, m in r_mu.items():
+            err = float((mu[k] - m).abs().max())
+            own = float(m.abs().max())
+            w_mu = max(w_mu, err / max(own * rtol + gtol * top, 1e-30))
+            if err > rtol * own + gtol * top:
+                fails.append((side, k, "moment", err, own))
+            if gan and side == "gen":
+                continue  # Adam's first generator update is a sign of its noise-floor gradient
+            sure = (m.abs() > 1e-3 * own) & (m.abs() > (0.0 if gan else 1e-5) * top)
+            if sure.any():
+                d_got, d_ref = (params[k] - p0[side][k])[sure], (r_params[k] - p0[side][k])[sure]
+                ulps = 2 * float(torch.finfo(torch.float32).eps * p0[side][k].abs().max())
+                bound = MRT_TOL["update"] * float((r_params[k] - p0[side][k]).abs().max()) + 1e-7 * up_top + ulps
+                err = float((d_got - d_ref).abs().max())
+                w_up = max(w_up, err / bound)
+                if err > bound:
+                    fails.append((side, k, "update", err, bound))
+        worst[side] = {"moment_of_bound": w_mu, "update_of_bound": w_up}
+    return worst, fails
+
+
+def mrt_digest(got) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for side in sorted(got):
+        for k in sorted(got[side][0]):
+            h.update(got[side][0][k].numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_rank_main(opts) -> int:
+    """One rank of 4r: `train_one_rank` (a world of one under NCCL),
+    `train_two_ranks` / `train_four_ranks` (gloo, every rank on card 0) or `train_clis` (the two
+    training CLIs over two ranks). Writes `<out>/<task>.rank<r>.json`; a
+    failed check raises."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from efficient_tts_tpu_torch import _build
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.parallel import initialize_multihost, make_mesh, rank_device, split_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if opts.rank_task == "train_one_rank":
+        # a step on (1, 1) is held to one card's bit for bit: no convolution
+        # algorithm that sums in a run-dependent order
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    for name in ("mrf_stage", "flash_attention"):
+        if not _build._target(_build.SRC_DIR / f"{name}.cu").exists():
+            raise AssertionError(f"csrc/{name}.cu is not built: run the ranks from chip_smoke.py's phase 4r")
+    dev = rank_device("cuda", index=0)
+    torch.cuda.set_device(dev)
+    lines = []
+
+    if opts.rank_task == "train_clis":
+        from efficient_tts_tpu_torch.bin import train, train_vocoder
+
+        with open(os.path.join(opts.out, "clis.json")) as f:
+            paths = json.load(f)
+        dist_args = ["--coordinator", opts.init, "--num_processes", str(opts.world), "--process_id", str(opts.rank),
+                     "--dist_backend", "gloo", "--device_index", "0"]
+        t0 = time.perf_counter()
+        t = train.main(["--config", paths["cnn"], "--train_fid_scp", paths["train"], "--dev_fid_scp", paths["dev"],
+                        "--outdir", paths["train_out"], *dist_args])
+        rank = dist.get_rank()
+        lines.append({"what": "bin.train", "rank": rank, "world": opts.world, "backend": dist.get_backend(),
+                      "mesh": [t.mesh.shape["data"], t.mesh.shape["model"]], "step": t.state["step"],
+                      "losses": [e["loss"] for e in t.metrics_log], "evals": len(t.eval_log),
+                      "param_sum": float(sum(float(p.double().sum()) for p in t.state["params"].parameters())),
+                      "seconds": time.perf_counter() - t0})
+        mrf.reset_launches()
+        t0 = time.perf_counter()
+        v = train_vocoder.main(["--wav_scp", paths["wav_scp"], "--dev_wav_scp", paths["wav_scp"], "--outdir",
+                                paths["voc_out"], "--batch_size", "4", "--train_max_steps", "2",
+                                "--save_interval_steps", "2", "--eval_interval_steps", "2", "--log_interval_steps", "1",
+                                *dist_args])
+        torch.cuda.synchronize()
+        lines.append({"what": "bin.train_vocoder", "rank": rank, "world": opts.world, "backend": dist.get_backend(),
+                      "data_path": v.data_path, "step": v.state["step"],
+                      "g_losses": [e["g_loss"] for e in v.metrics_log],
+                      "evals": len(v.eval_log), "mrf_launches": launch_list(dict(mrf.launches)), "dtype": "f32",
+                      "param_sum": float(sum(float(p.double().sum()) for s in ("gen", "disc")
+                                             for p in v.state[s]["params"].parameters())),
+                      "seconds": time.perf_counter() - t0})
+    else:
+        initialize_multihost(opts.init, opts.world, opts.rank, backend=opts.backend, device="cuda")
+        rank = dist.get_rank()
+
+        def report(**line):
+            lines.append({"rank": rank, "world": opts.world, "backend": dist.get_backend(), **line})
+
+        failed = []  # every mode runs and reports; the task fails at its end
+        if opts.rank_task == "train_one_rank":
+            # every mode on a (1, 1) mesh, bit-equal to one card, at small batches
+            mesh = make_mesh(1, 1)
+            for name, b in (("efts_cnn", 16), ("efts_transformer", 8), ("hifigan_v1", 2)):
+                batch = mrt_batch(name, b)
+                state, step = mrt_setup(name, dev)
+                state, m_ref = step(state, batch)
+                ref = mrt_params(state)
+                del state, step
+                for mode in MRT_MODES[name]:
+                    fa.reset_launches()
+                    state, step = mrt_setup(name, dev, mesh, mode == "sp")
+                    state, m = step(state, batch)
+                    got = mrt_params(state, mesh)
+                    equal = (all(float(m[k]) == float(m_ref[k]) for k in m_ref)
+                             and all(torch.equal(got[s][i][k], ref[s][i][k]) for s in ref for i in (0, 1)
+                                     for k in ref[s][i]))
+                    report(what="train_step(mesh=)", model=name, mode=mode, mesh=[1, 1], B=b, bit_equal=equal,
+                           flash_launches=[[*k, n] for k, n in fa.launches.items()])
+                    if not equal:
+                        failed.append(f"{name} {mode} on (1, 1) differs from one card's step")
+                    del state, step
+                torch.cuda.empty_cache()
+        elif opts.rank_task in MRT_WORLDS:
+            modes = MRT_WORLDS[opts.rank_task][1]
+            meshes = {MRT_MESHES[m]: make_mesh(*MRT_MESHES[m]) for m in sorted({m for v in modes.values() for m in v})}
+            for name, b in (("efts_cnn", MRT_CNN_B), ("efts_transformer", TRAIN_B), ("hifigan_v1", GAN_B)):
+                batch = mrt_batch(name, b)
+                ref = p0 = None
+                if rank == 0:  # one card's step, on rank 0 alone, before the meshes'
+                    state, step = mrt_setup(name, dev)
+                    p0 = {s: ps for s, (ps, _) in mrt_params(state).items()}
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    state, m_ref = step(state, batch)
+                    torch.cuda.synchronize()
+                    ref, m_ref = mrt_params(state), {k: float(v) for k, v in m_ref.items()}
+                    one_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+                    del state, step
+                    torch.cuda.empty_cache()
+                dist.barrier()
+                for mode in modes[name]:
+                    mesh = meshes[MRT_MESHES[mode]]
+                    state, step = mrt_setup(name, dev, mesh, mode == "sp")
+                    blk = {k: split_batch(v, mesh) for k, v in batch.items()}
+                    fa.reset_launches()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    state, m = step(state, blk)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+                    flash = dict(fa.launches)
+                    got = mrt_params(state, mesh)
+                    metrics = {k: float(v) for k, v in m.items()}
+                    line = dict(what="train_step(mesh=)", model=name, mode=mode, mesh=list(MRT_MESHES[mode]), B=b,
+                                metrics=metrics, step_s=secs, peak_mb=peak, params_sha256=mrt_digest(got),
+                                flash_launches=[[*k, n] for k, n in flash.items()])
+                    if rank == 0:
+                        worst, fails = (mrt_compare_tf32(got, ref, p0) if name == "efts_transformer"
+                                        else mrt_compare(got, ref, p0, gan=name == "hifigan_v1"))
+                        rel = {k: abs(metrics[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-30) for k in m_ref}
+                        tol = ({"metric_rel": MRT_TOL["metric_rel"], **TRAIN_TOL, **UPDATE_TOL}
+                               if name == "efts_transformer" else
+                               {**MRT_TOL, **({"gan_mu": MRT_GAN_MU} if name == "hifigan_v1" else {})})
+                        line.update(metric_rel_err=rel, worst=worst, failing=fails[:5], one_card_peak_mb=one_peak,
+                                    tolerance=tol)
+                        if fails or max(rel.values()) > MRT_TOL["metric_rel"]:
+                            failed.append(f"{name} {mode} over two ranks disagrees with one card: {line}")
+                    report(**line)
+                    del state, step, got
+                    torch.cuda.empty_cache()
+        else:
+            raise ValueError(f"unknown rank task {opts.rank_task!r}")
+        if failed:
+            print(json.dumps(lines), flush=True)
+            raise AssertionError("\n".join(failed))
+    with open(os.path.join(opts.out, f"{opts.rank_task}.rank{rank}.json"), "w") as f:
+        json.dump(lines, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_rank_training_phase(torch, new_launches, work):
+    """4r: training over ranks on the one card. i. a world of one under NCCL
+    and ii. two and four ranks under gloo run at once, each in its own processes;
+    then iii. bin.train and bin.train_vocoder over two ranks under gloo, and
+    rank 0's checkpoints resumed on one card. Returns the ranks' flash
+    launches {path: {(kernel, T, segmented): n}}."""
+    from efficient_tts_tpu_torch.bench.corpus import make_corpus
+    from efficient_tts_tpu_torch.bin import train, train_vocoder
+    from efficient_tts_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = [("train_one_rank", start_ranks("train_one_rank", 1, work, "nccl")),
+            *((task, start_ranks(task, world, work, "gloo")) for task, (world, _) in MRT_WORLDS.items())]
+    try:
+        for _, (procs, logs) in runs:
+            wait_ranks(procs, logs, timeout=600)
+    finally:
+        for _, (procs, _) in runs:
+            for p in procs:
+                p.kill()
+    flash, digests = {}, {}
+    # K4 a step on every rank: the text encoder's 4 calls at T1, the mel
+    # encoder's 2 and the decoder's 4 at T2, each forward, dkv and dq
+    per_step = {(kern, t, True): n for kern in ("fwd", "dkv", "dq") for t, n in ((T1_TR, 4), (TRAIN_T2, 6))}
+    for task, (procs, _) in runs:
+        for r in range(len(procs)):
+            with open(os.path.join(work, f"{task}.rank{r}.json")) as f:
+                for line in json.load(f):
+                    log({"phase": "multi_rank_training", **line})
+                    got = {tuple(k): n for *k, n in line["flash_launches"]}
+                    if got != (per_step if line["model"] == "efts_transformer" else {}):
+                        raise AssertionError(f"{line['model']} {line['mode']} on rank {r} of {line['world']}: flash "
+                                             f"launches {got}, expected {per_step} for the transformer, none else")
+                    if line["world"] > 1:
+                        tag = f"multi_rank_training_{line['backend']}{line['world']}_{line['model']}_{line['mode']}"
+                        flash[f"{tag}_rank{r}"] = {tuple(k): n for *k, n in line["flash_launches"]}
+                        digests.setdefault(tag, set()).add(line["params_sha256"])
+    if any(len(d) != 1 for d in digests.values()):
+        raise AssertionError(f"the ranks' gathered states differ: {digests}")
+    t_iii = time.perf_counter()
+
+    # iii. the two CLIs over two ranks on a synthetic corpus, the EFTS-CNN at
+    # the char yaml's widths (batch 8) and HiFi-GAN V1 (batch 4)
+    corpus = make_corpus(os.path.join(work, "corpus"), n_train=16, n_dev=4, seed=3, min_s=1.0, max_s=2.0)
+    config = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "efficient_tts_tpu_torch",
+                                      "configs", "lj_efts_cnn_char.yaml"))
+    config.update(batch_size=8, train_max_steps=2, save_interval_steps=2, eval_interval_steps=2,
+                  log_interval_steps=1)
+    config["dataset_params"]["wav_path"] = corpus["wavs"]
+    paths = {"cnn": os.path.join(work, "cnn.json"), "train": corpus["train"], "dev": corpus["dev"],
+             "wav_scp": os.path.join(work, "wav.scp"), "train_out": os.path.join(work, "cli_train"),
+             "voc_out": os.path.join(work, "cli_voc")}
+    with open(paths["cnn"], "w") as f:
+        json.dump(config, f)
+    with open(corpus["train"]) as f, open(paths["wav_scp"], "w") as g:
+        g.writelines(os.path.join(work, "corpus", line.split("|")[0]) + "\n" for line in f)
+    with open(os.path.join(work, "clis.json"), "w") as f:
+        json.dump(paths, f)
+    procs, logs = start_ranks("train_clis", 2, work, "gloo")
+    try:
+        wait_ranks(procs, logs, timeout=600)
+    finally:
+        for p in procs:
+            p.kill()
+    cli = [json.load(open(os.path.join(work, f"train_clis.rank{r}.json"))) for r in range(2)]
+    for r, lines in enumerate(cli):
+        for line in lines:
+            log({"phase": "multi_rank_training", **line})
+    (t0, v0), (t1, v1) = cli
+    written = sorted(os.listdir(paths["train_out"])), sorted(os.listdir(paths["voc_out"]))
+    if (t0["param_sum"] != t1["param_sum"] or v0["param_sum"] != v1["param_sum"] or t0["losses"] != t1["losses"]
+            or v0["data_path"] != "host" or v0["evals"] != 1 or v1["evals"] != 0
+            or not all(math.isfinite(x) for x in t0["losses"] + v0["g_losses"])):
+        raise AssertionError(f"the CLIs over two ranks: {cli}")
+    new_launches["train_vocoder_two_ranks_eval", "f32"] = {(d, c): n for d, c, n in v0["mrf_launches"]}
+    # rank 0's checkpoints, one-card files, resumed on this card for one more step
+    resumed = train.main(["--config", paths["cnn"], "--train_fid_scp", paths["train"], "--outdir",
+                          os.path.join(work, "resumed_train"), "--resume",
+                          os.path.join(paths["train_out"], "checkpoint-2steps"), "--set", "train_max_steps=3"])
+    voc = train_vocoder.main(["--wav_scp", paths["wav_scp"], "--outdir", os.path.join(work, "resumed_voc"),
+                              "--resume", os.path.join(paths["voc_out"], "checkpoint-2steps"), "--batch_size", "4",
+                              "--train_max_steps", "3", "--device_corpus", "off"])
+    steps = [resumed.state["step"], voc.state["step"]]
+    losses = [resumed.metrics_log[-1]["loss"], voc.metrics_log[-1]["g_loss"]]
+    log({"phase": "multi_rank_training", "what": "rank 0's checkpoints resumed on one card", "files": written,
+         "steps": steps, "losses": losses, "seconds": time.perf_counter() - t_iii})
+    if steps != [3, 3] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"resuming rank 0's checkpoints on one card: steps {steps}, losses {losses}")
+    del resumed, voc
+    log({"phase": "multi_rank_training", "what": "phase 4r", "seconds": time.perf_counter() - t_phase})
+    return flash
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2532,14 +2963,14 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", help="a directory holding an earlier tree's flash_attention.cu, "
                     "mrf_stage_int8.cu and probe_matmul.cu with their headers, timed in turns with this "
                     "tree's (phase 5b)")
-    # phase 4q runs its ranks as processes of this script
+    # phases 4q and 4r run their ranks as processes of this script
     for flag in ("--rank_task", "--init", "--out", "--backend"):
         ap.add_argument(flag, help=argparse.SUPPRESS)
     for flag in ("--rank", "--world"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if opts.rank_task:
-        return rank_main(opts)
+        return (train_rank_main if opts.rank_task.startswith("train_") else rank_main)(opts)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -3135,6 +3566,9 @@ def main(argv=None) -> int:
     # 4q. multi-rank synthesis and serving, the ranks on this card
     with tempfile.TemporaryDirectory() as work:
         multi_rank_flash = multi_rank_phase(torch, new_launches, work)
+    # 4r. training over ranks, the ranks on this card
+    with tempfile.TemporaryDirectory() as work:
+        multi_rank_training_flash = multi_rank_training_phase(torch, new_launches, work)
     # the flash kernels at the CLI's other lengths, held as phase 3 holds
     # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
     cli_shapes = sorted({(t, seg) for (_, t, seg) in (*train_cli_flash, *registry_flash)} - set(bwd_shapes))
@@ -3343,7 +3777,8 @@ def main(argv=None) -> int:
         else:
             by_path = {"efts_transformer_training": train_launches.get(("fwd", t, True), 0),
                        "train_cli_transformer": train_cli_flash.get(("fwd", t, True), 0),
-                       "train_cli_transformer_registry_optimizer": registry_flash.get(("fwd", t, True), 0)}
+                       "train_cli_transformer_registry_optimizer": registry_flash.get(("fwd", t, True), 0),
+                       **{path: n.get(("fwd", t, True), 0) for path, n in multi_rank_training_flash.items()}}
         # a length only the CLI's corpus gives counts the CLI's launches
         n_launch = by_path["train_cli_transformer" if name.startswith("train_cli") else next(iter(by_path))]
         row = {
@@ -3411,7 +3846,8 @@ def main(argv=None) -> int:
             k_ms = k_dev
             by_path = {"efts_transformer_training": train_launches.get((part, t, segmented), 0),
                        "train_cli_transformer": train_cli_flash.get((part, t, segmented), 0),
-                       "train_cli_transformer_registry_optimizer": registry_flash.get((part, t, segmented), 0)}
+                       "train_cli_transformer_registry_optimizer": registry_flash.get((part, t, segmented), 0),
+                       **{path: n.get((part, t, segmented), 0) for path, n in multi_rank_training_flash.items()}}
             cli_only = (t, segmented) in cli_shapes
             row = {
                 "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR

@@ -9,4 +9,4 @@ Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; without a card they raise instead of running on the CPU.
 """
 
-__version__ = "0.1.0"
+from efficient_tts_tpu_torch.version import __version__  # noqa: F401

@@ -29,6 +29,15 @@ unless it has just saved that step. The weights start from the seeded
 numpy init (`init.py`, seed 0). Runs on the card unless `--use_cpu` is
 given; without a card it raises. `main` returns the trainer, whose
 `data_path` says which path ran.
+
+Over ranks (JAX :120-163; torchrun, or `--coordinator` / `--num_processes`
+/ `--process_id`, as `bin/train.py` takes them): the host path on a
+data-parallel mesh of model extent 1 (`fit_data_extent(batch_size,
+world)`), every rank reading the same seeded loader and keeping its rows of
+each global batch (`device_prefetch(mesh=)`). The device corpus crops one
+batch per card from a stream of the step, so `auto` takes the host path in
+a world larger than one and `on` there raises. Rank 0 alone writes the
+config, the logs, the checkpoints and runs the evals.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from __future__ import annotations
 import argparse
 import itertools
 import logging
+
+from efficient_tts_tpu_torch.bin.train import add_distributed_args, join_ranks, train_mesh
 
 DEVICE_CORPUS_BUDGET = 2 << 30  # bytes of the padded corpus `auto` puts on the card
 
@@ -70,6 +81,7 @@ def get_parser():
                    help="hold the wav corpus on the card and crop and take mels there (auto: when not "
                    "fine-tuning and the padded corpus fits 2 GiB)")
     p.add_argument("--use_cpu", action="store_true", help="run on the CPU (the default is the card)")
+    add_distributed_args(p)
     return p
 
 
@@ -93,17 +105,23 @@ def main(argv=None):
     from efficient_tts_tpu_torch.data.dataset import MelAudioSegmentDataset
     from efficient_tts_tpu_torch.data.loader import background_prefetch, device_prefetch, infinite_loader
     from efficient_tts_tpu_torch.train import checkpoint as ckpt
+    from efficient_tts_tpu_torch.parallel import is_primary
     from efficient_tts_tpu_torch.train.hifigan_train_step import (BATCH_KEYS, init_gan_state, make_gan_eval_step,
-                                                                  make_gan_train_step)
+                                                                  make_gan_train_step, shard_gan_state)
     from efficient_tts_tpu_torch.train.hifigan_trainer import HiFiGANTrainer
     from efficient_tts_tpu_torch.train.optim import HiFiGANAdam
     from efficient_tts_tpu_torch.utils.config import dump_config, load_config, vocoder_config_from_dict
-    from efficient_tts_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device("cpu" if args.use_cpu else "cuda")
+    world, device = join_ranks(args, "cpu" if args.use_cpu else "cuda")
+    if args.device_corpus == "on" and world > 1:
+        raise ValueError(f"--device_corpus on in a world of {world} ranks: the device corpus crops one batch "
+                         "per card from a stream of the step, not a rank's rows of a global batch; use "
+                         "--device_corpus off or auto (the host path)")
+    mesh = train_mesh(world, args.batch_size)
     config = load_config(args.config) if args.config else {}
     voc_cfg = vocoder_config_from_dict(config)
-    dump_config(config, args.outdir)
+    if is_primary():
+        dump_config(config, args.outdir)
     lr = float(config.get("learning_rate", 2e-4))
     betas = tuple(config.get("adam_betas", (0.8, 0.99)))
     lr_decay = float(config.get("lr_decay", 0.999))
@@ -114,12 +132,13 @@ def main(argv=None):
     steps_per_epoch = args.lr_decay_steps or max(len(ds) // args.batch_size, 1)
     gen_tx = HiFiGANAdam(lr, betas, lr_decay, steps_per_epoch)
     disc_tx = HiFiGANAdam(lr, betas, lr_decay, steps_per_epoch)
-    state = init_gan_state(0, voc_cfg, gen_tx, disc_tx, ema_decay=args.ema_decay, device=device)
+    state = (init_gan_state(0, voc_cfg, gen_tx, disc_tx, ema_decay=args.ema_decay, device=device) if mesh is None
+             else shard_gan_state(0, voc_cfg, gen_tx, disc_tx, mesh, ema_decay=args.ema_decay, device=device))
     step = make_gan_train_step(voc_cfg, gen_tx, disc_tx, use_stft_loss=args.use_stft_loss, ema_decay=args.ema_decay,
                                compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
-                               device=device)
+                               device=device, mesh=mesh)
     on_device = args.device_corpus == "on" or (
-        args.device_corpus == "auto" and not args.fine_tuning
+        args.device_corpus == "auto" and not args.fine_tuning and world == 1
         and dc.corpus_nbytes(files, voc_cfg.segment_size) <= DEVICE_CORPUS_BUDGET)
     if on_device:
         corpus = dc.load_corpus(files, segment_size=voc_cfg.segment_size, device=device)
@@ -130,7 +149,8 @@ def main(argv=None):
         # background_prefetch crops and collates the next batches on a worker
         # thread across epochs; device_prefetch copies them to the card ahead
         train_iter = device_prefetch(background_prefetch(infinite_loader(ds, args.batch_size, collate_mel_audio)),
-                                     size=2, device=device, dtypes={k: torch.float32 for k in BATCH_KEYS})
+                                     size=2, device=device, dtypes={k: torch.float32 for k in BATCH_KEYS},
+                                     mesh=mesh)
     logging.info("vocoder data path: %s", "device corpus" if on_device else "host")
     eval_step, eval_batches = None, []
     if args.dev_wav_scp:
@@ -145,7 +165,7 @@ def main(argv=None):
                              save_interval_steps=args.save_interval_steps,
                              log_interval_steps=args.log_interval_steps, eval_step=eval_step,
                              eval_batches=eval_batches, eval_interval_steps=args.eval_interval_steps,
-                             max_keep_checkpoints=args.max_keep_checkpoints, device=device)
+                             max_keep_checkpoints=args.max_keep_checkpoints, device=device, mesh=mesh)
     trainer.data_path = "device" if on_device else "host"
     resume = args.resume or ckpt.latest_checkpoint(args.outdir)
     if resume:

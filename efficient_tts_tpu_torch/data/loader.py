@@ -109,18 +109,28 @@ def data_loader(
         stop.set()
 
 
-def device_prefetch(iterator, size: int = 2, device="cuda", dtypes: dict | None = None):
+def device_prefetch(iterator, size: int = 2, device="cuda", dtypes: dict | None = None, mesh=None,
+                    accum_steps: int = 1):
     """(epoch, batch dict of numpy arrays) -> (epoch, batch dict of tensors
     on `device`), `size` batches ahead. `dtypes` maps keys to the torch
     dtypes the consumer takes; the cast happens on the host. On the card
     the copies run on a side stream from pinned memory; on the CPU the
     batch becomes tensors in place. A batch object that repeats by identity
-    is handed over again as the same tensors, not uploaded again."""
-    dev = resolve_device(device)
-    return _device_prefetch(iterator, size, dev, dtypes or {})
+    is handed over again as the same tensors, not uploaded again. With a
+    `mesh` (JAX :90-130) only this rank's rows of each global batch
+    (`parallel/sharding.py:split_batch`: its block, or with `accum_steps`
+    its block of each micro-batch) are pinned and uploaded, to the rank's
+    card (`parallel/distributed.py:rank_device` of `device`)."""
+    if mesh is None:
+        return _device_prefetch(iterator, size, resolve_device(device), dtypes or {})
+    from efficient_tts_tpu_torch.parallel.distributed import rank_device
+    from efficient_tts_tpu_torch.parallel.sharding import split_batch
+
+    return _device_prefetch(iterator, size, rank_device(device), dtypes or {},
+                            lambda a: split_batch(a, mesh, accum_steps))
 
 
-def _device_prefetch(iterator, size, dev, dtypes):
+def _device_prefetch(iterator, size, dev, dtypes, block=None):
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     last = (None, None)  # (source batch object, (tensors, event))
 
@@ -129,7 +139,7 @@ def _device_prefetch(iterator, size, dev, dtypes):
         epoch, batch = item
         if batch is last[0]:
             return epoch, last[1]
-        host = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+        host = {k: torch.as_tensor(np.asarray(v) if block is None else block(np.asarray(v))) for k, v in batch.items()}
         host = {k: t.to(dtypes[k]) if k in dtypes else t for k, t in host.items()}
         if copy_stream is None:
             placed = (host, None)

@@ -133,19 +133,23 @@ class EftsCNN(nn.Module):
         value = self.text_value(self.text_encoder(self._embed(text)))
         return value * text_mask.to(value.dtype)[:, :, None]
 
-    def forward(self, text, text_lengths, speech, speech_lengths, gen=None, deterministic: bool = True) -> dict:
+    def forward(self, text, text_lengths, speech, speech_lengths, gen=None, deterministic: bool = True,
+                sp=None) -> dict:
         """Training forward: text [B, T1] ids, speech [B, T2, odim] target
         mel, lengths [B] -> {loss, mel_loss, duration_loss, imv [B, T2],
         reconst_alpha [B, T1, T2], mel_pred [B, T2, odim], aligned_e [B, T1]}.
         With `deterministic=False` and a dropout rate, `gen` (a CPU
-        generator) drives every dropout mask."""
+        generator) drives every dropout mask. With `sp` (a
+        `parallel/sequence_parallel.py:SeqShard`) `speech` is the rank's
+        frames of the mel, the frame-indexed outputs are the rank's, and the
+        losses are the rank's part of the batch's."""
         cfg = self.cfg
         if not self.training_modules:
             raise RuntimeError("this EftsCNN was built for inference; build it with "
                                "training_modules=True (compat: trainable=True) to train it")
         t1, t2 = text.shape[1], speech.shape[1]
         text_mask = sequence_mask(text_lengths, t1)
-        mel_mask = sequence_mask(speech_lengths, t2)
+        mel_mask = sequence_mask(speech_lengths, t2) if sp is None else sp.mask(speech_lengths, t2)
         text_mel_maskf = (text_mask[:, :, None] & mel_mask[:, None, :]).float()
         train = not deterministic and cfg.dropout_rate > 0
         r_text, r_mel, r_dec, r_pre, r_dur = split_generator(gen, 5) if train else (None,) * 5
@@ -159,18 +163,20 @@ class EftsCNN(nn.Module):
 
         cdt = as_dtype(cfg.compute_dtype)
         speech_c = speech.to(cdt) if cdt is not None else speech
-        mel_h = dropout(leaky_relu(self.mel_prenet(speech_c), cfg.leaky_slope), rate, r_pre, deterministic)
-        mel_h = self.mel_encoder(mel_h, rate, r_mel, deterministic)
+        mel_dropout = dropout if sp is None else sp.dropout
+        mel_h = mel_dropout(leaky_relu(self.mel_prenet(speech_c), cfg.leaky_slope), rate, r_pre, deterministic)
+        mel_h = self.mel_encoder(mel_h, rate, r_mel, deterministic, sp=sp)
         if cfg.use_mel_query_fc:
             mel_h = self.mel_query_fc(mel_h)
 
         # the soft alignment and the IMV chain, f32
         alpha = scaled_dot_attention(mel_h, text_key, text_mask) * text_mel_maskf
         p = index_vector(text_mask)
-        imv = imv_from_alpha(alpha, p, mel_mask, text_lengths)
-        e = aligned_positions(imv, p, mel_mask, text_mask, sigma_e=cfg.sigma_e)
-        reconst_alpha = alignment_from_positions(e, t2, sigma=cfg.sigma, mel_mask=mel_mask,
-                                                 text_mask=text_mask) * text_mel_maskf
+        imv = (imv_from_alpha if sp is None else sp.imv_from_alpha)(alpha, p, mel_mask, text_lengths)
+        e = (aligned_positions if sp is None else sp.aligned_positions)(imv, p, mel_mask, text_mask,
+                                                                        sigma_e=cfg.sigma_e)
+        reconst_alpha = alignment_from_positions(e, t2, sigma=cfg.sigma, mel_mask=mel_mask, text_mask=text_mask,
+                                                 offset=0 if sp is None else sp.index * t2) * text_mel_maskf
 
         # the text values expanded to mel frames: operands in the compute dtype, f32 sums
         alpha_c = reconst_alpha.to(cdt) if cdt is not None else reconst_alpha
@@ -178,7 +184,7 @@ class EftsCNN(nn.Module):
         if cdt is not None:
             expanded = expanded.to(cdt)
         expanded = expanded * mel_mask.to(expanded.dtype)[:, :, None]
-        dec = self.decoder(expanded, rate, r_dec, deterministic)
+        dec = self.decoder(expanded, rate, r_dec, deterministic, sp=sp)
         mel_pred = self.mel_out(dec).float() * mel_mask.float()[:, :, None]
 
         # the duration target: log(delta e + offset) of the detached e
@@ -186,8 +192,13 @@ class EftsCNN(nn.Module):
         delta_e = torch.cat([e_sg[:, :1], e_sg[:, 1:] - e_sg[:, :-1]], dim=1)
         log_delta_e = torch.where(text_mask, torch.log(delta_e + cfg.duration_offset), torch.zeros_like(delta_e))
         dur_pred = self.duration_predictor(text_value, ~text_mask, rate, r_dur, deterministic).float()
-        mel_loss, dur_loss = fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
-                                             use_masking=cfg.use_masking, loss_normalize=cfg.loss_normalize)
+        if sp is None:
+            mel_loss, dur_loss = fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
+                                                 use_masking=cfg.use_masking, loss_normalize=cfg.loss_normalize)
+        else:
+            mel_loss, dur_loss = sp.fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
+                                                    speech_lengths, use_masking=cfg.use_masking,
+                                                    loss_normalize=cfg.loss_normalize)
         return {"loss": mel_loss + dur_loss, "mel_loss": mel_loss, "duration_loss": dur_loss, "imv": imv,
                 "reconst_alpha": reconst_alpha, "mel_pred": mel_pred, "aligned_e": e_sg}
 

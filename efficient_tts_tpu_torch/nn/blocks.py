@@ -21,13 +21,19 @@ class ResConvBlock(nn.Module):
         self.layers = nn.ModuleList(conv(n_channels, n_channels, k_size) for _ in range(num_layers))
         self.negative_slope = negative_slope
 
-    def forward(self, x, dropout_rate: float = 0.0, gen=None, deterministic: bool = True):
+    def forward(self, x, dropout_rate: float = 0.0, gen=None, deterministic: bool = True, sp=None):
         """[B, T, C] -> [B, T, C]; with `deterministic=False` and a rate,
-        `gen` (a CPU generator) drives each layer's dropout."""
+        `gen` (a CPU generator) drives each layer's dropout. With `sp` (a
+        `parallel/sequence_parallel.py:SeqShard`) x is the rank's frames and
+        each conv takes its neighbours' halo."""
         train = not deterministic and dropout_rate > 0
         gens = split_generator(gen, len(self.layers)) if train else [None] * len(self.layers)
         for conv, g in zip(self.layers, gens):
-            x = x + dropout(leaky_relu(conv(x), self.negative_slope), dropout_rate, g, deterministic)
+            if sp is None:
+                x = x + dropout(leaky_relu(conv(x), self.negative_slope), dropout_rate, g, deterministic)
+            else:
+                x = x + sp.dropout(leaky_relu(sp.conv(conv, x), self.negative_slope), dropout_rate, g,
+                                   deterministic)
         return x
 
     def fold(self) -> None:

@@ -50,26 +50,38 @@ def split_generator(gen: torch.Generator, n: int) -> list[torch.Generator]:
     return [torch.Generator().manual_seed(s) for s in _seeds(gen, n)]
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, deterministic: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, deterministic: bool,
+            window: tuple[int, int] | None = None) -> torch.Tensor:
     """Keep each element with probability 1 - rate and scale it by 1 / (1 -
     rate), else 0 (`efficient_tts_tpu/nn/layers.py:dropout`). The mask is
-    drawn on x's device from a generator seeded by one draw of `gen`."""
+    drawn on x's device from a generator seeded by one draw of `gen`. With
+    `window=(length, start)` x is frames start.. of a sequence of `length`
+    along axis 1, and takes those frames of the whole sequence's mask."""
     if deterministic or rate <= 0.0:
         return x
     if gen is None:
         raise ValueError("dropout needs a generator when it is not deterministic")
     keep = 1.0 - rate
     dev_gen = torch.Generator(device=x.device).manual_seed(_seeds(gen, 1)[0])
-    mask = torch.rand(x.shape, generator=dev_gen, device=x.device) < keep
+    if window is None:
+        mask = torch.rand(x.shape, generator=dev_gen, device=x.device) < keep
+    else:
+        length, start = window
+        whole = torch.rand((x.shape[0], length, *x.shape[2:]), generator=dev_gen, device=x.device)
+        mask = whole[:, start:start + x.shape[1]] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x [..., in] @ w[out, in]^T + b."""
-    return F.linear(x, w.to(x.dtype)) + b.to(x.dtype)
+def _plus_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    return y if b is None else y + b.to(y.dtype)
 
 
-def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1, stride: int = 1,
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """x [..., in] @ w[out, in]^T + b (b None: no bias)."""
+    return _plus_bias(F.linear(x, w.to(x.dtype)), b)
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, dilation: int = 1, stride: int = 1,
            padding: int | None = None, groups: int = 1) -> torch.Tensor:
     """[B, T, Cin] -> [B, T', Cout]; w [Cout, Cin / groups, k]. `padding`
     None is 'SAME' for odd k: (k-1)//2 * dilation on both sides."""
@@ -77,7 +89,7 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1,
         padding = (w.shape[-1] - 1) // 2 * dilation
     y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, stride=stride, padding=padding, dilation=dilation,
                  groups=groups)
-    return y.transpose(1, 2) + b.to(x.dtype)
+    return _plus_bias(y.transpose(1, 2), b)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
@@ -95,12 +107,12 @@ def avg_pool1d(x: torch.Tensor, window: int, stride: int, padding: int) -> torch
 
 
 def conv_transpose1d(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, stride: int, padding: int
 ) -> torch.Tensor:
     """[B, T, Cin] -> [B, (T-1)*stride - 2*padding + k, Cout]; w [Cin, Cout, k]
     (torch ConvTranspose1d semantics)."""
     y = F.conv_transpose1d(x.transpose(1, 2), w.to(x.dtype), None, stride=stride, padding=padding)
-    return y.transpose(1, 2) + b.to(x.dtype)
+    return _plus_bias(y.transpose(1, 2), b)
 
 
 def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-12) -> torch.Tensor:

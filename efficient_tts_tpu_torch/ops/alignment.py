@@ -70,10 +70,11 @@ def aligned_positions(imv: torch.Tensor, p: torch.Tensor, mel_mask: torch.Tensor
 
 
 def alignment_from_positions(
-    e: torch.Tensor, t2: int, sigma: float = 0.01, mel_mask=None, text_mask=None
+    e: torch.Tensor, t2: int, sigma: float = 0.01, mel_mask=None, text_mask=None, offset: int = 0
 ) -> torch.Tensor:
-    """alpha'[b, i, t] = softmax_i(-sigma (q[b, t] - e[b, i])^2), [B, T1, T2]."""
-    q = torch.arange(t2, dtype=torch.float32, device=e.device)[None, :]
+    """alpha'[b, i, t] = softmax_i(-sigma (q[b, t] - e[b, i])^2), [B, T1, T2];
+    the frames' positions start at `offset` (a sequence-parallel rank's)."""
+    q = torch.arange(offset, offset + t2, dtype=torch.float32, device=e.device)[None, :]
     if mel_mask is not None:
         q = q * mel_mask.float()
     else:

@@ -86,3 +86,10 @@ def is_primary() -> bool:
     """True on rank 0, or in a process that joined no group: the rank that
     logs, saves and binds the server."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def all_reduce_tensors(tensors: dict, group) -> dict:
+    """{name: the sum over `group`} of same-dtype tensors, in one all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in tensors.values()])
+    dist.all_reduce(flat, group=group)
+    return {n: v.view_as(t) for (n, t), v in zip(tensors.items(), flat.split([t.numel() for t in tensors.values()]))}

@@ -79,3 +79,13 @@ def fit_data_extent(batch_size: int, n_available: int) -> int:
         if batch_size % d == 0:
             return d
     return 1
+
+
+def data_seed(seed: int, mesh=None) -> int:
+    """The seed of this rank's dropout generator: `seed` itself on data row 0
+    (and without a mesh, so one data row draws as one card does), and one
+    drawn from (seed, data index) on the other rows; equal across a model
+    row, whose replicated compute must draw the same masks."""
+    if mesh is None or not mesh.data_index:
+        return seed
+    return int(np.random.SeedSequence([seed, mesh.data_index]).generate_state(1)[0])

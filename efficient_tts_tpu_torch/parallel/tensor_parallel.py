@@ -5,14 +5,30 @@ inserts the all-gathers. Here a sharded layer holds its rank's slice of the
 output channels, computes those channels and all-gathers them along the
 channel axis over the mesh's `model_group`, so every rank goes on with the
 whole activation; a layer left unsharded runs whole. Biases stay replicated,
-as JAX's rule keeps them (a rank adds its slice of the bias).
+as JAX's rule keeps them, and are added after the gather.
+
+One family of layers serves synthesis and training: its collectives are
+autograd Functions, as Megatron writes them. The input enters through
+`copy_to_group` (identity forward; the backward all-reduces the input
+gradient over the model group, each rank holding only its slice's part of
+it), and the output leaves through `gather_columns` (an all-gather forward;
+the backward keeps the rank's slice of the output gradient, which every
+rank holds whole, since everything after the gather is replicated). Under
+`torch.no_grad` they are a plain all-gather. A weight-normed transposed conv
+normalizes per input channel over (out, k), across the shards: its partial
+sums of squares are all-reduced (`all_reduce_sum`) before the division.
 
 Each class keeps the parameter and buffer names of the layer it replaces, so
 a sharded module's state dict names what the whole one's does.
-`ColumnParallelMRFStage` runs its convs through `nn/layers.py:conv1d` (cuDNN
-on the card) in `ops/mrf.py:stage_chain`'s order: the MRF kernels take only
-square [k, C, C] weights, and JAX's tp path reaches no Pallas kernel either
+`ColumnParallelMRFStage` (synthesis only: its weights are buffers) runs its
+convs through `nn/layers.py:conv1d` (cuDNN on the card) in
+`ops/mrf.py:stage_chain`'s order: the MRF kernels take only square
+[k, C, C] weights, and JAX's tp path reaches no Pallas kernel either
 (`efficient_tts_tpu/pipeline.py:_sharded_synth_fn`).
+
+`all_reduce_sum`, `all_gather_stack` and `all_reduce_max` serve sequence
+parallelism too (`parallel/sequence_parallel.py`): their backward sums the
+ranks' gradients, each rank's loss being its part of the global one.
 """
 
 from __future__ import annotations
@@ -22,7 +38,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from efficient_tts_tpu_torch.nn.layers import conv1d, conv_transpose1d, leaky_relu, linear
+from efficient_tts_tpu_torch.nn.layers import _WeightNormed, conv1d, conv_transpose1d, leaky_relu, linear
 from efficient_tts_tpu_torch.ops.mrf import LRELU_SLOPE, stage_chain
 
 
@@ -47,48 +63,196 @@ def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(all_gather(x, group), dim=dim)
 
 
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n, ctx.index = dim, x.shape[dim], dist.get_rank(group)
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(), None, None
+
+
+def _summed(g: torch.Tensor, group) -> torch.Tensor:
+    g = g.contiguous().clone()
+    dist.all_reduce(g, group=group)
+    return g
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _AllGatherStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.index = group, dist.get_rank(group)
+        return torch.stack(all_gather(x, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group)[ctx.index], None
+
+
+class _AllReduceMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.amax(dim=-1).contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+        tied = x == y[..., None]
+        n = tied.sum(dim=-1).to(x.dtype)
+        dist.all_reduce(n, group=group)
+        ctx.save_for_backward(tied, n)
+        ctx.group = group
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        tied, n = ctx.saved_tensors
+        return tied * (_summed(g, ctx.group) / n)[..., None], None
+
+
+def gather_columns(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """x's slices from every rank of `group`, concatenated along `dim`; the
+    backward keeps this rank's slice of the (whole, replicated) gradient."""
+    return _GatherColumns.apply(x, group, dim % x.dim())
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; the backward all-reduces (sums) its gradient over `group`."""
+    return _CopyToGroup.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group`; the backward sums the gradients over it too."""
+    return _AllReduceSum.apply(x, group)
+
+
+def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """[ranks of `group`, *x.shape]: x of every rank; the backward sums the
+    gradients over the group and keeps this rank's row."""
+    return _AllGatherStack.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The max of x over its last axis and over `group`; the gradient, summed
+    over the group, is spread evenly over every tied maximum of every rank,
+    as `jnp.max` spreads it."""
+    return _AllReduceMax.apply(x, group)
+
+
 def _slice(t: torch.Tensor, axis: int, index: int, extent: int) -> torch.Tensor:
     n = t.shape[axis] // extent
     return t.narrow(axis, index * n, n).clone()
 
 
-class _ColumnParallel(nn.Module):
-    """The rank's slice of a layer's weight along its output axis, the whole
-    bias, and the group its outputs are gathered over."""
+def _sliced(t: torch.Tensor, axis: int, index: int, extent: int) -> nn.Parameter:
+    return nn.Parameter(_slice(t, axis, index, extent), requires_grad=t.requires_grad)
 
-    def __init__(self, layer: nn.Module, axis: int, index: int, extent: int, group):
+
+class _ColumnParallel(nn.Module):
+    """A layer holding the rank's slice of its weight along the output axis
+    and the whole bias: the input enters through `copy_to_group`, the rank's
+    channels (`local` with `kernel()`) leave through `gather_columns`, and the
+    bias is added after the gather, the same values as each rank adding its
+    slice before it."""
+
+    def __init__(self, layer: nn.Module, group):
         super().__init__()
-        self.weight = nn.Parameter(_slice(layer.weight, axis, index, extent), requires_grad=False)
         self.bias = layer.bias
-        n = self.weight.shape[axis]
-        self.cols = slice(index * n, (index + 1) * n)
         self.group = group
 
     def forward(self, x):
-        return all_gather_cat(self.local(x), self.group, dim=-1)
+        y = self.local(copy_to_group(x, self.group), self.kernel())
+        return gather_columns(y, self.group) + self.bias.to(y.dtype)
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight
 
 
 class ColumnParallelLinear(_ColumnParallel):
-    def local(self, x):
-        return linear(x, self.weight, self.bias[self.cols])
-
-
-class ColumnParallelConv1d(_ColumnParallel):
     def __init__(self, layer, axis, index, extent, group):
-        super().__init__(layer, axis, index, extent, group)
+        super().__init__(layer, group)
+        self.weight = _sliced(layer.weight, axis, index, extent)
+
+    def local(self, x, w):
+        return linear(x, w, None)
+
+
+class _Conv(_ColumnParallel):
+    def __init__(self, layer, group):
+        super().__init__(layer, group)
         self.dilation = layer.dilation
+        self.stride, self.groups = getattr(layer, "stride", 1), getattr(layer, "groups", 1)
+        self.padding = getattr(layer, "padding", None)
 
-    def local(self, x):
-        return conv1d(x, self.weight, self.bias[self.cols], self.dilation)
+    def local(self, x, w):
+        return conv1d(x, w, None, self.dilation, self.stride, self.padding, self.groups)
 
 
-class ColumnParallelConvTranspose1d(_ColumnParallel):
+class ColumnParallelConv1d(_Conv):
     def __init__(self, layer, axis, index, extent, group):
-        super().__init__(layer, axis, index, extent, group)
+        super().__init__(layer, group)
+        self.weight = _sliced(layer.weight, axis, index, extent)
+
+
+class ColumnParallelWNConv1d(_Conv):
+    """`WNConv1d` over the rank's output channels: v and g sliced on axis 0,
+    so the norm (over in and k) stays on the rank."""
+
+    def __init__(self, layer, axis, index, extent, group):
+        super().__init__(layer, group)
+        self.v, self.g = _sliced(layer.v, 0, index, extent), _sliced(layer.g, 0, index, extent)
+
+    kernel = _WeightNormed.weight
+
+
+class _ConvTranspose(_ColumnParallel):
+    def __init__(self, layer, group):
+        super().__init__(layer, group)
         self.stride, self.padding = layer.stride, layer.padding
 
-    def local(self, x):
-        return conv_transpose1d(x, self.weight, self.bias[self.cols], self.stride, self.padding)
+    def local(self, x, w):
+        return conv_transpose1d(x, w, None, self.stride, self.padding)
+
+
+class ColumnParallelConvTranspose1d(_ConvTranspose):
+    def __init__(self, layer, axis, index, extent, group):
+        super().__init__(layer, group)
+        self.weight = _sliced(layer.weight, axis, index, extent)
+
+
+class ColumnParallelWNConvTranspose1d(_ConvTranspose):
+    """`WNConvTranspose1d` over the rank's output channels: v [in, out/m, k]
+    sliced on axis 1, g [in, 1, 1] whole. The norm per input channel runs
+    over (out, k), so the ranks' partial sums of squares are all-reduced."""
+
+    def __init__(self, layer, axis, index, extent, group):
+        super().__init__(layer, group)
+        self.v, self.g = _sliced(layer.v, 1, index, extent), layer.g
+
+    def kernel(self):
+        ss = all_reduce_sum(torch.sum(self.v * self.v, dim=(1, 2), keepdim=True), self.group)
+        return copy_to_group(self.g, self.group) * self.v / torch.sqrt(ss)
 
 
 class ColumnParallelMRFStage(nn.Module):
@@ -134,6 +298,5 @@ class ColumnParallelMRFStage(nn.Module):
 def shard_embedding(model: nn.Module, index: int, extent: int, group) -> None:
     """Keep the rank's columns of `model.text_embedding` [V, C] and make the
     model's `embed` look them up and gather the channels."""
-    model._parameters["text_embedding"] = nn.Parameter(_slice(model.text_embedding, 1, index, extent),
-                                                       requires_grad=False)
-    model.embed = lambda text: all_gather_cat(F.embedding(text, model.text_embedding), group, dim=-1)
+    model._parameters["text_embedding"] = _sliced(model.text_embedding, 1, index, extent)
+    model.embed = lambda text: gather_columns(F.embedding(text, model.text_embedding), group, dim=-1)

@@ -9,6 +9,7 @@ ema]}); `load_checkpoint` restores everything (resume) or the modules only
 checkpoint on disk is always whole. Names that do not match
 `checkpoint-{step}steps` (the divergence guard's `diverged-state-{step}`)
 are invisible to `latest_checkpoint` and `prune_checkpoints`.
+`save_train_state` is the trainers' save, on one card or over ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed
 
 _PREFIX, _SUFFIX = "checkpoint-", "steps"
 
@@ -28,13 +30,39 @@ def _saved(state):
     return state
 
 
+def checkpoint_path(outdir: str, step: int, name: str | None = None) -> str:
+    """Where `save_checkpoint` writes the state of `step` (or `name`)."""
+    return os.path.join(os.path.abspath(outdir), name or f"{_PREFIX}{int(step)}{_SUFFIX}")
+
+
 def save_checkpoint(outdir: str, state: dict, name: str | None = None) -> str:
     step = int(state["step"])
     os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(os.path.abspath(outdir), name or f"{_PREFIX}{step}{_SUFFIX}")
+    path = checkpoint_path(outdir, step, name)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save({**_saved(state), "step": step}, tmp)
     os.replace(tmp, path)
+    return path
+
+
+def save_train_state(outdir: str, state: dict, name: str | None = None, mesh=None,
+                     keep: int | None = None) -> str:
+    """Save a trainer's state and prune to the newest `keep`; returns the
+    path. Under a `mesh` this is collective: the one-card state is gathered
+    (`parallel/sharding.py:gather_train_state`), rank 0 alone writes it, and
+    every rank returns once it is on disk."""
+    from efficient_tts_tpu_torch.parallel.distributed import is_primary
+    from efficient_tts_tpu_torch.parallel.sharding import gather_train_state
+
+    if mesh is not None:
+        state = gather_train_state(state, mesh)
+    path = checkpoint_path(outdir, state["step"], name)
+    if is_primary():
+        save_checkpoint(outdir, state, name=name)
+        if keep:
+            prune_checkpoints(outdir, keep)
+    if mesh is not None:
+        torch.distributed.barrier(group=mesh.group)
     return path
 
 

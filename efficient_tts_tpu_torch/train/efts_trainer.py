@@ -24,6 +24,20 @@ up to 4 utterances); where matplotlib is not installed it logs one warning
 per trainer and draws nothing, the evals running on. Entry points run on
 `device` ("cuda" by default) and raise without a card unless the caller
 passes device="cpu".
+
+With a `mesh` (JAX :49, :79-83, :152-161, :213-219; one process per rank):
+`init_state` shards (`train/efts_train_step.py:shard_state`); the train
+iterator yields this rank's rows of each global batch
+(`data/loader.py:device_prefetch(mesh=, accum_steps=)`); `save` is
+collective: it gathers the one-card state (`parallel/sharding.py:
+gather_train_state`) and rank 0 alone writes it, so a checkpoint is the
+one-card file and resumes on any mesh; `load` reads that file on every rank
+and keeps the rank's slices. Each eval batch is split over the data extent
+and its losses weighted globally; the logs, the writer and the eval images
+are the primary rank's. The metrics are all-reduced, so the divergence
+guard stops every rank at the same step, and its forensic save is
+collective. The dropout generator is seeded per data row
+(`parallel/mesh.py:data_seed`).
 """
 
 from __future__ import annotations
@@ -37,8 +51,12 @@ from collections import defaultdict, deque
 import numpy as np
 import torch
 
+from efficient_tts_tpu_torch.parallel.distributed import is_primary
+from efficient_tts_tpu_torch.parallel.mesh import data_seed
+from efficient_tts_tpu_torch.parallel.sharding import slice_saved, split_batch
 from efficient_tts_tpu_torch.train import checkpoint as ckpt
-from efficient_tts_tpu_torch.train.efts_train_step import METRIC_KEYS, make_eval_step, make_train_step
+from efficient_tts_tpu_torch.train.efts_train_step import (BATCH_DTYPES, METRIC_KEYS, make_eval_step,
+                                                           make_train_step, shard_state)
 from efficient_tts_tpu_torch.train.state import create_state
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.preemption import convert_sigterm
@@ -53,7 +71,7 @@ class EftsTrainer:
                  train_max_steps: int = 1_000_000, save_interval_steps: int = 5000,
                  eval_interval_steps: int = 1000, log_interval_steps: int = 1000, seed: int = 0,
                  writer=None, max_keep_checkpoints: int | None = None, accum_steps: int = 1,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tx = tx
@@ -64,15 +82,17 @@ class EftsTrainer:
         self.save_interval_steps = save_interval_steps
         self.eval_interval_steps = eval_interval_steps
         self.log_interval_steps = log_interval_steps
-        self.gen = torch.Generator().manual_seed(seed)  # the host-side dropout key
-        self.writer = writer
+        self.mesh = mesh
+        self.primary = is_primary()
+        self.writer = writer if self.primary else None
+        self.gen = torch.Generator().manual_seed(data_seed(seed, mesh))  # the host-side dropout key
         self.max_keep_checkpoints = max_keep_checkpoints
         self.state = None
         self.step_times: deque[dict] = deque(maxlen=self.HISTORY)
         self.metrics_log: deque[dict] = deque(maxlen=self.HISTORY)
         self.eval_log: deque[dict] = deque(maxlen=self.HISTORY)
-        self._train_step = make_train_step(cfg, tx, accum_steps=accum_steps, device=self.device)
-        self._eval_step = make_eval_step(cfg, device=self.device)
+        self._train_step = make_train_step(cfg, tx, mesh=mesh, accum_steps=accum_steps, device=self.device)
+        self._eval_step = make_eval_step(cfg, mesh=mesh, device=self.device)
         self._plots_warned = False
         os.makedirs(outdir, exist_ok=True)
 
@@ -80,17 +100,22 @@ class EftsTrainer:
 
     def init_state(self, model):
         check_module_device(model, self.device)
-        self.state = create_state(model, self.tx)
+        self.state = (create_state(model, self.tx) if self.mesh is None else
+                      shard_state(model, self.tx, self.mesh, device=self.device))
 
     def save(self, name: str | None = None) -> str:
-        path = ckpt.save_checkpoint(self.outdir, self.state, name=name)
-        log.info("saved checkpoint %s", path)
-        if self.max_keep_checkpoints:
-            ckpt.prune_checkpoints(self.outdir, self.max_keep_checkpoints)
+        """Write the state (under a mesh: gathered, by rank 0; collective) and
+        return the checkpoint's path."""
+        path = ckpt.save_train_state(self.outdir, self.state, name, self.mesh, self.max_keep_checkpoints)
+        if self.primary:
+            log.info("saved checkpoint %s", path)
         return path
 
     def load(self, path, load_only_params: bool = False):
-        self.state = ckpt.load_checkpoint(path, self.state, load_only_params)
+        saved = ckpt.read_checkpoint(path, ckpt.state_device(self.state))
+        if self.mesh is not None:
+            saved = slice_saved(saved, self.state, self.mesh)
+        self.state = ckpt.restore(self.state, saved, load_only_params)
 
     # -- loop -------------------------------------------------------------
 
@@ -121,9 +146,10 @@ class EftsTrainer:
             if pstep % self.log_interval_steps == 0:
                 dt = time.time() - t_last
                 means = {k: v / max(count, 1) for k, v in totals.items()}
-                log.info("step %d (epoch %d): loss=%.4f mel=%.4f dur=%.4f (%.2f steps/s, data wait %.1f ms a step)",
-                         pstep, pepoch, means["loss"], means["mel_loss"], means["duration_loss"],
-                         count / max(dt, 1e-9), 1e3 * wait / count)
+                (log.info if self.primary else log.debug)(
+                    "step %d (epoch %d): loss=%.4f mel=%.4f dur=%.4f (%.2f steps/s, data wait %.1f ms a step)",
+                    pstep, pepoch, means["loss"], means["mel_loss"], means["duration_loss"],
+                    count / max(dt, 1e-9), 1e3 * wait / count)
                 if self.writer is not None:
                     for k, v in means.items():
                         self.writer.add_scalar(f"train/{k}", v, pstep)
@@ -171,6 +197,8 @@ class EftsTrainer:
         totals = defaultdict(float)
         peak = first = first_batch = None
         for batch in self.eval_batches:
+            if self.mesh is not None:
+                batch = {k: split_batch(np.asarray(batch[k]), self.mesh) for k in BATCH_DTYPES}
             out = self._eval_step(self.state["params"], batch)
             if first is None:
                 # the first 4 utterances' diagnostics, read back once
@@ -187,8 +215,10 @@ class EftsTrainer:
         means = {k: v / max(len(self.eval_batches), 1) for k, v in totals.items()}
         if peak is not None:
             means["align_peak"] = peak
-        log.info("eval step %d: %s", step, " ".join(f"{k}={v:.4f}" for k, v in means.items()))
         self.eval_log.append({"step": step, **means})
+        if not self.primary:
+            return means
+        log.info("eval step %d: %s", step, " ".join(f"{k}={v:.4f}" for k, v in means.items()))
         if self.writer is not None:
             for k, v in means.items():
                 self.writer.add_scalar(f"eval/{k}", v, step)

@@ -27,6 +27,16 @@ HiFiGANTrainGenerator]}, updated in place (`train/state.py`).
 `HiFiGANGenerator`, whose MRF stages run the card's kernels, and returns
 the mel-L1 on the loss filterbank. Entry points run on `device` ("cuda" by
 default) and raise without a card unless the caller passes device="cpu".
+
+Over ranks (JAX :72-102): `shard_gan_state` holds the generator, its
+optimizer state and the EMA column-parallel over 'model' (`parallel/
+sharding.py:shard_module(trainable=True)`), the MPD, the MSD and theirs
+replicated; `make_gan_train_step(..., mesh=)` takes this rank's block of
+rows, weights the batch-mean losses by 1 / data extent and sums the D and
+the G gradients over the data group before each update (the replicated
+leaves' averaged over the model group: `agree_replicated`), so every rank's
+replicated tensors, spectral norm's u and v included, stay equal. The
+metrics are the global ones on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ from efficient_tts_tpu_torch.losses.gan import discriminator_loss, feature_loss,
 from efficient_tts_tpu_torch.losses.stft_loss import multi_resolution_stft_loss
 from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
 from efficient_tts_tpu_torch.models.hifigan_train import HiFiGANTrainGenerator
+from efficient_tts_tpu_torch.parallel.distributed import all_reduce_tensors
+from efficient_tts_tpu_torch.parallel.mesh import DATA_AXIS
+from efficient_tts_tpu_torch.parallel.sharding import agree_replicated, shard_module, sharded_names
 from efficient_tts_tpu_torch.train.state import named_params
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.precision import full_f32
@@ -53,6 +66,19 @@ def init_gan_state(seed: int, voc_cfg: HiFiGANConfig, gen_tx, disc_tx, ema_decay
     it tracks an EMA generator, starting at the generator's weights."""
     return compat.gan_state_from_jax(init.init_gan_state(seed, voc_cfg, ema=ema_decay is not None), voc_cfg,
                                      gen_tx, disc_tx, device=device)
+
+
+def shard_gan_state(seed: int, voc_cfg: HiFiGANConfig, gen_tx, disc_tx, mesh, ema_decay: float | None = None,
+                    device="cuda") -> dict:
+    """`init_gan_state` placed on `mesh`: the generator (and the EMA) as this
+    rank's column-parallel copy, its optimizer moments made from the rank's
+    slices; the discriminators and their optimizer state whole."""
+    state = init_gan_state(seed, voc_cfg, gen_tx, disc_tx, ema_decay=ema_decay, device=device)
+    gen = shard_module(state["gen"]["params"], mesh, trainable=True)
+    state["gen"] = {"params": gen, "opt_state": gen_tx.init(named_params(gen))}
+    if "ema" in state:
+        state["ema"] = shard_module(state["ema"], mesh, trainable=True)
+    return state
 
 
 def ema_generator(state: dict) -> HiFiGANTrainGenerator:
@@ -88,10 +114,19 @@ def _log_mel(y, cfg):
 def make_gan_train_step(voc_cfg: HiFiGANConfig, gen_tx, disc_tx, mel_cfg: MelConfig = MelConfig(),
                         mel_loss_weight: float = 45.0, use_stft_loss: bool = False, stft_loss_weight: float = 1.0,
                         ema_decay: float | None = None, compute_dtype=None, fmax_loss: float | None = None,
-                        device="cuda"):
+                        device="cuda", mesh=None):
     dev = resolve_device(device)
     loss_cfg = loss_mel_config(mel_cfg, fmax_loss)
     cdt = compute_dtype
+    data_group = mesh.data_group if mesh is not None and mesh.shape[DATA_AXIS] > 1 else None
+    share = 1.0 / mesh.shape[DATA_AXIS] if data_group is not None else 1.0
+
+    def summed(grads, module):
+        if data_group is not None:
+            grads = all_reduce_tensors(grads, data_group)
+        if mesh is None:
+            return grads
+        return agree_replicated(grads, sharded_names(module), mesh)
 
     def train_step(state, batch):
         gen, disc = state["gen"]["params"], state["disc"]["params"]
@@ -114,7 +149,7 @@ def make_gan_train_step(voc_cfg: HiFiGANConfig, gen_tx, disc_tx, mel_cfg: MelCon
             msd_r, msd_g, _, _ = disc.msd(y, y_hat.detach(), cdt, fused=True)
             l_msd, _, _ = discriminator_loss(msd_r, msd_g)
             d_loss = l_mpd + l_msd
-            d_grads = _grads(d_loss, d_params)
+            d_grads = summed(_grads(d_loss * share, d_params), disc)
             with torch.no_grad():
                 state["disc"]["opt_state"] = _apply(disc, d_grads, state["disc"]["opt_state"], disc_tx)
             del d_grads, mpd_r, mpd_g, msd_r, msd_g
@@ -134,7 +169,7 @@ def make_gan_train_step(voc_cfg: HiFiGANConfig, gen_tx, disc_tx, mel_cfg: MelCon
                 g_loss = g_loss + stft_loss_weight * (sc + mag)
                 metrics.update(stft_sc=sc, stft_mag=mag)
             metrics["g_loss"] = g_loss
-            g_grads = _grads(g_loss, g_params)
+            g_grads = summed(_grads(g_loss * share, g_params), gen)
             with torch.no_grad():
                 state["gen"]["opt_state"] = _apply(gen, g_grads, state["gen"]["opt_state"], gen_tx)
                 if ema_decay is not None:
@@ -142,7 +177,10 @@ def make_gan_train_step(voc_cfg: HiFiGANConfig, gen_tx, disc_tx, mel_cfg: MelCon
                     torch._foreach_mul_(ema, ema_decay)
                     torch._foreach_add_(ema, torch._foreach_mul(list(g_params.values()), 1.0 - ema_decay))
         state["step"] += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_group is not None:
+            metrics = all_reduce_tensors({k: v * share for k, v in metrics.items()}, data_group)
+        return state, metrics
 
     # the filterbank of the generated audio's mel, the dataset's loss filterbank
     train_step.loss_mel_cfg = loss_cfg

@@ -21,6 +21,13 @@ without one seeds the tracked EMA from the restored generator; one without
 discriminators keeps the state's. Checkpoints
 are `train/checkpoint.py`'s; the JAX package's orbax directories are not
 read.
+
+With a `mesh` (JAX :48, :164-176; a `shard_gan_state` state and a
+`make_gan_train_step(mesh=)` step, one process per rank), as `EftsTrainer`
+does: `save` gathers the one-card state and rank 0 alone writes it
+(collective), `load` reads that file on every rank and keeps the rank's
+slices, the logs and the writer are the primary rank's, and each eval
+gathers the generator (collective) and runs on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ from collections import defaultdict, deque
 
 import torch
 
+from efficient_tts_tpu_torch.parallel.distributed import is_primary
+from efficient_tts_tpu_torch.parallel.sharding import gather_state_dict, slice_saved
 from efficient_tts_tpu_torch.train import checkpoint as ckpt
+from efficient_tts_tpu_torch.models.hifigan_train import HiFiGANTrainGenerator
 from efficient_tts_tpu_torch.train.hifigan_train_step import ema_generator
 from efficient_tts_tpu_torch.utils.device import resolve_device
 from efficient_tts_tpu_torch.utils.preemption import convert_sigterm
@@ -47,8 +57,10 @@ class HiFiGANTrainer:
     def __init__(self, train_step, state, train_iter, outdir: str = "exp_vocoder", train_max_steps: int = 400_000,
                  save_interval_steps: int = 5000, log_interval_steps: int = 100, writer=None, eval_step=None,
                  eval_batches=None, eval_interval_steps: int = 1000, max_keep_checkpoints: int | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.primary = is_primary()
         self.train_step = train_step
         self.state = state
         self.train_iter = train_iter
@@ -56,7 +68,7 @@ class HiFiGANTrainer:
         self.train_max_steps = train_max_steps
         self.save_interval_steps = save_interval_steps
         self.log_interval_steps = log_interval_steps
-        self.writer = writer
+        self.writer = writer if self.primary else None
         self.eval_step = eval_step
         self.eval_batches = eval_batches or []
         self.eval_interval_steps = eval_interval_steps
@@ -68,12 +80,13 @@ class HiFiGANTrainer:
         os.makedirs(outdir, exist_ok=True)
 
     def save(self, name: str | None = None) -> str:
-        path = ckpt.save_checkpoint(self.outdir, self.state, name=name)
+        """Write the state (under a mesh: gathered, by rank 0; collective) and
+        return the checkpoint's path."""
+        path = ckpt.save_train_state(self.outdir, self.state, name, self.mesh, self.max_keep_checkpoints)
         if name is None:
             self.saved_step = self.state["step"]
-        log.info("saved vocoder checkpoint %s", path)
-        if self.max_keep_checkpoints:
-            ckpt.prune_checkpoints(self.outdir, self.max_keep_checkpoints)
+        if self.primary:
+            log.info("saved vocoder checkpoint %s", path)
         return path
 
     def load(self, path: str) -> None:
@@ -92,6 +105,8 @@ class HiFiGANTrainer:
             saved["ema"] = saved["gen"]["params"]
         if "disc" not in saved:
             log.warning("%s holds no discriminators: they start from their seeded init", path)
+        if self.mesh is not None:
+            saved = slice_saved(saved, self.state, self.mesh)
         self.state.update(ckpt.restore({k: v for k, v in self.state.items() if k in saved}, saved))
 
     def run(self):
@@ -126,9 +141,10 @@ class HiFiGANTrainer:
             if pstep % self.log_interval_steps == 0:
                 dt = time.time() - t_last
                 means = {k: v / count for k, v in totals.items()}
-                log.info("step %d (epoch %d): g=%.3f d=%.3f mel_l1=%.3f (%.2f steps/s, data wait %.1f ms a step)",
-                         pstep, pepoch, means["g_loss"], means["d_loss"], means["mel_l1"], count / max(dt, 1e-9),
-                         1e3 * wait / count)
+                (log.info if self.primary else log.debug)(
+                    "step %d (epoch %d): g=%.3f d=%.3f mel_l1=%.3f (%.2f steps/s, data wait %.1f ms a step)",
+                    pstep, pepoch, means["g_loss"], means["d_loss"], means["mel_l1"], count / max(dt, 1e-9),
+                    1e3 * wait / count)
                 if self.writer is not None:
                     for k, v in means.items():
                         self.writer.add_scalar(f"vocoder/{k}", v, pstep)
@@ -165,10 +181,19 @@ class HiFiGANTrainer:
             raise
         return self.state
 
-    def evaluate(self, step: int) -> float:
+    def evaluate(self, step: int) -> float | None:
         """The mean mel-L1 over the eval batches of the EMA generator (the raw
-        one when no EMA is tracked), folded once."""
-        voc = ema_generator(self.state).fold()
+        one when no EMA is tracked), folded once. Under a mesh the generator is
+        gathered (collective) and rank 0 alone evaluates; the others return
+        None."""
+        gen = ema_generator(self.state)
+        if self.mesh is not None:
+            whole = gather_state_dict(gen, self.mesh)
+            if not self.primary:
+                return None
+            gen = HiFiGANTrainGenerator(gen.cfg).to(self.device)
+            gen.load_state_dict(whole)
+        voc = gen.fold()
         total = 0.0
         for batch in self.eval_batches:
             total += float(self.eval_step(voc, batch)["mel_l1"])

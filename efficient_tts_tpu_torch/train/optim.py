@@ -58,7 +58,9 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class ClipByGlobalNorm:
-    """optax.clip_by_global_norm: g * (max_norm / norm) only where norm >= max_norm."""
+    """optax.clip_by_global_norm: g * (max_norm / norm) only where norm >= max_norm.
+    `norm` is the gradients' global norm where the caller has it (over ranks,
+    each holding slices of some leaves); without it the clip computes it."""
 
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
@@ -66,8 +68,9 @@ class ClipByGlobalNorm:
     def init(self, params: dict) -> dict:
         return {}
 
-    def update(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
-        norm = global_norm(list(grads.values()))
+    def update(self, grads: dict, state: dict, params: dict, norm: torch.Tensor | None = None) -> tuple[dict, dict]:
+        if norm is None:
+            norm = global_norm(list(grads.values()))
         return {n: torch.where(norm < self.max_norm, g, (g / norm) * self.max_norm) for n, g in grads.items()}, state
 
 
@@ -89,11 +92,12 @@ class AdamWarmup:
             state[key] = {n: torch.zeros_like(p, memory_format=torch.contiguous_format) for n, p in params.items()}
         return state
 
-    def update(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
-        """(updates, new state) for named gradients; nothing is changed in place."""
+    def update(self, grads: dict, state: dict, params: dict, norm: torch.Tensor | None = None) -> tuple[dict, dict]:
+        """(updates, new state) for named gradients; nothing is changed in place.
+        `norm` is their global norm, for the clip (`ClipByGlobalNorm`)."""
         names = list(grads)
         if self.grad_clip_norm is not None:
-            grads, _ = ClipByGlobalNorm(self.grad_clip_norm).update(grads, {}, params)
+            grads, _ = ClipByGlobalNorm(self.grad_clip_norm).update(grads, {}, params, norm)
         g = [grads[n] for n in names]
         if self.weight_decay:
             g = [x + self.weight_decay * params[n] for x, n in zip(g, names)]
@@ -152,7 +156,8 @@ class RAdam:
                                    for n, p in params.items()},
                 "nu": {n: torch.zeros_like(p, memory_format=torch.contiguous_format) for n, p in params.items()}}
 
-    def update(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
+    def update(self, grads: dict, state: dict, params: dict, norm: torch.Tensor | None = None) -> tuple[dict, dict]:
+        """`norm` is taken for the interface and unused: RAdam does not clip."""
         f = np.float32
         count = state["count"] + 1
         b2t = _int_pow(self.b2, count)
@@ -205,10 +210,15 @@ class Chain:
     def init(self, params: dict) -> list:
         return [p.init(params) for p in self.parts]
 
-    def update(self, grads: dict, state: list, params: dict) -> tuple[dict, list]:
+    def update(self, grads: dict, state: list, params: dict, norm: torch.Tensor | None = None) -> tuple[dict, list]:
+        """`norm`, the global norm of `grads`, goes to a leading clip, the one
+        part that sees `grads` as they were given."""
         new = []
-        for part, s in zip(self.parts, state, strict=True):
-            grads, s = part.update(grads, s, params)
+        for i, (part, s) in enumerate(zip(self.parts, state, strict=True)):
+            if i == 0 and isinstance(part, ClipByGlobalNorm):
+                grads, s = part.update(grads, s, params, norm)
+            else:
+                grads, s = part.update(grads, s, params)
             new.append(s)
         return grads, new
 

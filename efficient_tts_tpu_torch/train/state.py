@@ -25,9 +25,14 @@ def create_state(model: torch.nn.Module, tx) -> dict:
 
 
 @torch.no_grad()
-def apply_updates(state: dict, grads: dict, tx) -> dict:
+def apply_updates(state: dict, grads: dict, tx, norm: torch.Tensor | None = None) -> dict:
+    """One update of `tx`; `norm`, the gradients' global norm where the
+    caller has it, goes to its clip (`train/optim.py:ClipByGlobalNorm`)."""
     params = named_params(state["params"])
-    updates, state["opt_state"] = tx.update(grads, state["opt_state"], params)
+    if norm is None:
+        updates, state["opt_state"] = tx.update(grads, state["opt_state"], params)
+    else:
+        updates, state["opt_state"] = tx.update(grads, state["opt_state"], params, norm=norm)
     for n, u in updates.items():
         params[n].add_(u)
     state["step"] += 1

@@ -54,7 +54,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "compat", "compat.torch_import", "compat.torch_export", "bin.convert_checkpoint", "bin.export_torch",
                  "bin.prepare_data", "bin.prepare_databaker", "bin.data_utils", "utils.plotting",
                  "utils.profiling", "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
-                 "parallel.tensor_parallel"):
+                 "parallel.tensor_parallel", "parallel.sequence_parallel", "nn.init", "version"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 
@@ -339,3 +339,39 @@ def test_parallel_entry_points_default_to_cuda_and_raise_without_a_card(monkeypa
         initialize_multihost(device="cpu")
     with pytest.raises(ValueError, match="together"):
         initialize_multihost("localhost:1", None, 0, device="cpu")
+
+
+def test_multi_rank_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """The sharded states, the steps and trainers over a mesh, the batch
+    split and its prefetch, and the re-initialization run on the card unless
+    the caller asks for the CPU, and never move there on their own."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable here")
+    from efficient_tts_tpu_torch.data.loader import device_prefetch
+    from efficient_tts_tpu_torch.nn.init import initialize
+    from efficient_tts_tpu_torch.train.efts_train_step import make_eval_step, make_train_step, shard_batch, shard_state
+    from efficient_tts_tpu_torch.train.efts_trainer import EftsTrainer
+    from efficient_tts_tpu_torch.train.hifigan_train_step import make_gan_train_step, shard_gan_state
+    from efficient_tts_tpu_torch.train.hifigan_trainer import HiFiGANTrainer
+    from efficient_tts_tpu_torch.train.optim import AdamWarmup, HiFiGANAdam
+
+    # a 2 x 1 mesh's view from data row 0: every call raises before a collective
+    mesh = type("Mesh", (), {"shape": {"data": 2, "model": 1}, "member": True, "data_index": 0, "model_index": 0,
+                             "data_group": None, "model_group": None, "group": None})()
+    tx, gtx = AdamWarmup(), HiFiGANAdam()
+    model = compat.efts_cnn_from_jax(init.init_efts(0, EFTS_CFG), EFTS_CFG, device="cpu", trainable=True)
+    batch = {"text": np.ones((2, 4), np.int32), "text_lengths": np.array([4, 3]),
+             "mel": np.zeros((2, 8, EFTS_CFG.odim), np.float32), "mel_lengths": np.array([8, 6])}
+    for call in (lambda: shard_state(model, tx, mesh), lambda: shard_gan_state(0, VOC_CFG, gtx, gtx, mesh),
+                 lambda: make_train_step(EFTS_CFG, tx, mesh=mesh), lambda: make_eval_step(EFTS_CFG, mesh=mesh),
+                 lambda: make_gan_train_step(VOC_CFG, gtx, gtx, mesh=mesh),
+                 lambda: shard_batch(batch, mesh), lambda: device_prefetch(iter(()), mesh=mesh),
+                 lambda: EftsTrainer(EFTS_CFG, tx, iter(()), outdir=str(tmp_path), mesh=mesh),
+                 lambda: HiFiGANTrainer(None, None, iter(()), outdir=str(tmp_path / "voc"), mesh=mesh),
+                 lambda: initialize(model, "xavier_uniform", torch.Generator())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert shard_batch(batch, mesh, device="cpu")["text"].shape == (1, 4)
+    # a model on another device than the call's is refused, not moved
+    with pytest.raises(ValueError, match="holds tensors on meta"):
+        initialize(model.to("meta"), "xavier_uniform", torch.Generator(), device="cpu")

@@ -153,9 +153,10 @@ def test_train_cli_trains_the_transformer(corpus, tmp_path):
 
 def test_train_cli_refuses_more_than_one_device_and_bad_overrides(corpus, tmp_path):
     base = ["--config", corpus["cnn"], "--train_fid_scp", corpus["train"], "--outdir", str(tmp_path), "--use_cpu"]
-    with pytest.raises(NotImplementedError, match="one card"):
+    # one process is a world of one rank: a mesh of more is refused, not shrunk
+    with pytest.raises(ValueError, match="needs 2 ranks and this run has 1"):
         train.main(base + ["--set", "mesh.data=2"])
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(ValueError, match="needs 4 ranks and this run has 1"):
         train.main(base + ["--set", "mesh.model=4"])
     for bad in ("train_max_steps", "=3", "a..b=1", "batch_size.x=1"):
         with pytest.raises(SystemExit):
