@@ -269,6 +269,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import sys
 import time
 
@@ -343,6 +344,10 @@ BASELINE_SOURCES = ("flash_attention", "mrf_stage_int8", "probe_matmul")
 # the training batch (every call masked)
 FLASH_FWD_SHAPES = (("decoder", B, 512, False), ("text_encoder", B, 128, True),
                     ("t512_training", TRAIN_B, 512, True), ("text_encoder_training", TRAIN_B, 128, True))
+# (Tq, Tk) of the transformer's mel-side attention on a sequence-parallel
+# rank (`utils/roofline.py:SP_FLASH_SHAPES`): T2 = 512 over 2 and 4 ranks,
+# and 640 over 4, whose 160 rows the kernels take padded to 192
+SP_FLASH_SHAPES = ((256, 512), (128, 512), (160, 640))
 # chunked and streamed f32 waveforms vs the full pass: the interiors' MRF
 # rows are bit-equal, but cuDNN may sum conv_pre, the upsamples and
 # conv_post in another order at a window's shape (the wav lies in [-1, 1])
@@ -581,75 +586,97 @@ def cudnn_convs(torch, x, ws, bs, order):
     return run
 
 
-def flash_inputs(torch, t, seed, dev, segmented, b=B, n=3):
+def flash_inputs(torch, t, seed, dev, segmented, b=B, n=3, tk=None):
     """Seeded N(0, 1) q, k, v (and with n=4 an upstream gradient do) as the
     [B, H, T, 96] views of [B, T, H, 96] tensors that the q/k/v linears
     give; ragged segment ids (valid 1, pad 0) with one row all valid, as the
-    text encoder's key-padding mask gives."""
+    text encoder's key-padding mask gives. With `tk` (segmented), q and do
+    are the last sequence-parallel rank's t rows of a sequence of tk keys, as
+    `nn/attention.py:attend` hands them to the kernels: the rows' ids are
+    theirs of the keys', and rows up to the next multiple of 64 are zero
+    queries of id -1 (no key's) with a zero gradient."""
+    import torch.nn.functional as F
+
     from efficient_tts_tpu_torch.ops.flash_attention import SegmentIds
 
     g = torch.Generator().manual_seed(seed)
-    xs = [torch.randn((b, t, 4, 96), generator=g).to(dev).transpose(1, 2) for _ in range(n)]
-    seg = None
-    if segmented:
-        lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
-        lengths[0] = t
-        ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
-        seg = SegmentIds(ids, ids)
-    return (*xs, seg)
+    if tk is None:
+        xs = [torch.randn((b, t, 4, 96), generator=g).to(dev).transpose(1, 2) for _ in range(n)]
+        seg = None
+        if segmented:
+            lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+            lengths[0] = t
+            ids = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
+            seg = SegmentIds(ids, ids)
+        return (*xs, seg)
+    pad = -t % 64
+    xs = [torch.randn((b, t if i in (0, 3) else tk, 4, 96), generator=g) for i in range(n)]
+    xs = [F.pad(x, (0, 0, 0, 0, 0, pad)) if i in (0, 3) else x for i, x in enumerate(xs)]
+    lengths = torch.randint(tk // 2, tk + 1, (b,), generator=g)
+    lengths[0] = tk
+    kv = (torch.arange(tk)[None, :] < lengths[:, None]).to(torch.int32)
+    q_ids = F.pad(kv[:, tk - t:], (0, pad), value=-1)
+    seg = SegmentIds(q_ids.contiguous().to(dev), kv.to(dev))
+    return (*(x.to(dev).transpose(1, 2) for x in xs), seg)
 
 
-def check_flash_backward(torch, fa, t, segmented, dev, bwd_rows):
+def check_flash_backward(torch, fa, t, segmented, dev, bwd_rows, tk=None):
     """One training call of the flash kernels at [64, 4, t, 96] (forward with
     residuals, dkv, dq) against `flash_attention_reference` and its autograd:
-    dq, dk and dv at BWD_TOL, one launch of each kernel. Puts each backward
-    kernel's errors into bwd_rows[kernel, t, segmented] and returns the
-    forward output's errors, against the plain output."""
-    q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
+    dq, dk and dv at BWD_TOL, one launch of each kernel. With `tk`, a
+    sequence-parallel rank's t rows (padded to a multiple of 64) against tk
+    keys (`flash_inputs`). Puts each backward kernel's errors into
+    bwd_rows[kernel, Tq, Tk, segmented] (the kernels' lengths) and returns
+    the forward output's errors, against the plain output."""
+    q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1 + (tk or 0), dev=dev, segmented=segmented, b=TRAIN_B,
+                                    n=4, tk=tk)
+    tq, tk = q.shape[2], k.shape[2]
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
     fa.reset_launches()
     out = fa.flash_attention(*xs, seg, sm_scale=96**-0.5)
     got = torch.autograd.grad(out, xs, do)
     torch.cuda.synchronize()
-    if fa.launches != {(kernel, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}:
+    if fa.launches != {(kernel, tq, tk, segmented): 1 for kernel in ("fwd", "dkv", "dq")}:
         raise AssertionError(f"one backward launched {fa.launches}")
     ref_xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
     ref_out = fa.flash_attention_reference(*ref_xs, seg, sm_scale=96**-0.5)
     ref = torch.autograd.grad(ref_out, ref_xs, do)
     fwd = err_stats(out.detach(), ref_out.detach())
     stats = {name: err_stats(g_, r_) for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref)}
-    log({"phase": "kernel_vs_plain", "kernel": "flash_attention_backward", "shape": list(q.shape),
-         "segment_ids": segmented, "forward": fwd, **stats, "tolerance": BWD_TOL, "forward_tolerance": FLASH_TOL})
+    log({"phase": "kernel_vs_plain", "kernel": "flash_attention_backward", "shape": list(q.shape), "keys": tk,
+         "rows": t, "segment_ids": segmented, "forward": fwd, **stats, "tolerance": BWD_TOL,
+         "forward_tolerance": FLASH_TOL})
     if not within(fwd, FLASH_TOL):
         raise AssertionError(f"flash forward disagrees with its plain version at {tuple(q.shape)}: {fwd}")
     for name, st in stats.items():
         if not within(st, BWD_TOL):
             raise AssertionError(f"flash backward {name} disagrees with the plain gradient at {tuple(q.shape)}: {st}")
     for kernel, names in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
-        bwd_rows[kernel, t, segmented] = {
+        bwd_rows[kernel, tq, tk, segmented] = {
             "max_abs_err": max(stats[n]["max_abs_err"] for n in names),
             "rel_rms": max(stats[n]["rel_rms"] for n in names),
             "max_abs_over_range": max(stats[n]["max_abs_err"] / stats[n]["range"] for n in names)}
     return {"max_abs_err": fwd["max_abs_err"], "rel_rms": fwd["rel_rms"]}
 
 
-def flash_bound_ms(q, seg):
+def flash_bound_ms(q, k, seg, rows=None):
     """Each of q, k, v, o moved once (and the two id arrays), against the two
-    products at the TF32 tensor-core peak (the kernel's operand precision)."""
+    products at the TF32 tensor-core peak (the kernel's operand precision);
+    `rows`: the query rows the function needs (a padded q's real ones)."""
     from efficient_tts_tpu_torch.utils.roofline import bound_ms, flash_work
 
-    b, h, t, dk = q.shape
-    ops, nbytes = flash_work(b, h, t, dk, seg is not None)
+    b, h, tq, dk = q.shape
+    ops, nbytes = flash_work(b, h, rows or tq, k.shape[2], dk, seg is not None)
     return (*bound_ms(ops, nbytes, "tf32"), ops)
 
 
-def flash_bwd_bound_ms(q, seg, part):
+def flash_bwd_bound_ms(q, k, seg, part, rows=None):
     """q, k, v, do, m, l, di (and the id arrays) read once, the part's
     gradients written once, against its products at the TF32 peak."""
     from efficient_tts_tpu_torch.utils.roofline import bound_ms, flash_backward_work
 
-    b, h, t, dk = q.shape
-    ops, nbytes = flash_backward_work(b, h, t, dk, part, seg is not None)
+    b, h, tq, dk = q.shape
+    ops, nbytes = flash_backward_work(b, h, rows or tq, k.shape[2], dk, part, seg is not None)
     return (*bound_ms(ops, nbytes, "tf32"), ops)
 
 
@@ -682,24 +709,24 @@ def profile_summary(prof, ms, names):
 def flash_by_segments(launches, kernel="fwd"):
     """{segmented: launches} of one flash kernel, summed over lengths."""
     out = {}
-    for (name, _, seg), n in launches.items():
+    for (name, _, _, seg), n in launches.items():
         if name == kernel:
             out[seg] = out.get(seg, 0) + n
     return out
 
 
-def train_batch(rng, num_symbols, odim):
-    """The yaml's batch of 64 at T1=128, T2=512: ragged text and mel lengths
-    (one utterance of each at full length), seeded ids and N(0, 1) mel
-    targets, zero past each length."""
+def train_batch(rng, num_symbols, odim, t2=TRAIN_T2):
+    """The yaml's batch of 64 at T1=128, T2=512 (or `t2`): ragged text and
+    mel lengths (one utterance of each at full length), seeded ids and
+    N(0, 1) mel targets, zero past each length."""
     tl = rng.integers(T1_TR // 2, T1_TR + 1, TRAIN_B).astype(np.int32)
-    ml = rng.integers(TRAIN_T2 // 2, TRAIN_T2 + 1, TRAIN_B).astype(np.int32)
-    tl[0], ml[0] = T1_TR, TRAIN_T2
+    ml = rng.integers(t2 // 2, t2 + 1, TRAIN_B).astype(np.int32)
+    tl[0], ml[0] = T1_TR, t2
     text = np.zeros((TRAIN_B, T1_TR), np.int32)
     for i, n in enumerate(tl):
         text[i, :n] = rng.integers(1, num_symbols, n)
-    mel = rng.standard_normal((TRAIN_B, TRAIN_T2, odim)).astype(np.float32)
-    mel *= np.arange(TRAIN_T2)[None, :, None] < ml[:, None, None]
+    mel = rng.standard_normal((TRAIN_B, t2, odim)).astype(np.float32)
+    mel *= np.arange(t2)[None, :, None] < ml[:, None, None]
     return {"text": text, "text_lengths": tl, "mel": mel, "mel_lengths": ml}
 
 
@@ -1276,7 +1303,7 @@ def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda")
         tr = train.main(tr_args)
         torch.cuda.synchronize()
         tr_flash = dict(fa.launches)
-        per_kernel = {k: sum(n for (kern, _, _), n in tr_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
+        per_kernel = {k: sum(n for (kern, *_), n in tr_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
         tr_losses = [m["loss"] for m in tr.metrics_log]
         log({"phase": "main_path", "what": "bin.train, EFTS-Transformer", "overrides": tr_overrides,
              "steps": tr.state["step"], "losses": tr_losses,
@@ -1287,7 +1314,7 @@ def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda")
         calls = tr.cfg.n_text_encoder_layer + tr.cfg.n_mel_encoder_layer + tr.cfg.n_decoder_layer
         if (tr.state["step"] != 4 or not all(math.isfinite(v) for v in tr_losses)
                 or per_kernel != {k: 4 * calls for k in per_kernel} or mrf.launches
-                or any(not seg for (_, _, seg) in tr_flash)):
+                or any(not seg for (*_, seg) in tr_flash)):
             raise AssertionError(f"the EFTS-Transformer CLI: losses {tr_losses}, flash launches {tr_flash}")
         del tr
 
@@ -1490,6 +1517,10 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
     if bf.state["step"] != 3 or not all(math.isfinite(v) for m in bf_log for v in m.values()):
         raise AssertionError(f"the bf16 vocoder CLI: {bf_log}")
     del bf
+    # the interval saves, without pruning (which waits for each write)
+    interval_saves_phase(torch, train_vocoder, [*cpu, "--config", config_path, "--wav_scp", scps["train"],
+                                                "--batch_size", str(GAN_B), "--log_interval_steps", "1",
+                                                "--device_corpus", "off"], os.path.join(work, "exp_vocoder_saves"))
 
     # iii. GTA mels from 4m's EFTS-CNN checkpoint, then fine-tuning on them
     gta = os.path.join(work, "gta")
@@ -1586,6 +1617,50 @@ def vocoder_training_phase(torch, stages, new_launches, trained, device="cuda"):
     return {"voc_cfg": voc_cfg, "config": config_path, "wavs": wavs, "scps": scps, "host_cli": host_cli,
             "work": work, "checkpoint": voc_ckpt, "test_scp": test_scp,
             "wavs_vocoder": os.path.join(work, "wavs_vocoder")}
+
+
+def interval_saves_phase(torch, train_vocoder, base, outdir):
+    """4n-ii: the vocoder CLI's interval saves of the V1 GAN state, 6 steps
+    saving every 2: the save at step 2 made to wait for its write (as every
+    save did before they went to the background), those at 4 and 6 not. For
+    each save the time it held the training thread; the step wall at a save
+    step is the step's own wall plus that time, and the next step's wall
+    shows the background write's cost to training."""
+    from efficient_tts_tpu_torch.train import checkpoint as ckpt
+    from efficient_tts_tpu_torch.train import hifigan_trainer
+
+    real = hifigan_trainer.HiFiGANTrainer.save
+    saves = []
+
+    def timed(self, wait=False, name=None):
+        wait = wait or (name is None and self.state["step"] == 2)
+        t0 = time.perf_counter()
+        path = real(self, wait=wait, name=name)
+        saves.append({"step": self.state["step"], "wait": wait, "held_ms": 1e3 * (time.perf_counter() - t0)})
+        return path
+
+    hifigan_trainer.HiFiGANTrainer.save = timed
+    try:
+        t0 = time.perf_counter()
+        tr = train_vocoder.main([*base, "--outdir", outdir, "--train_max_steps", "6", "--save_interval_steps", "2"])
+        seconds = time.perf_counter() - t0
+    finally:
+        hifigan_trainer.HiFiGANTrainer.save = real
+    walls = {r["step"]: 1e3 * r["wall_s"] for r in tr.step_times}
+    rows = [{**sv, "save_step_wall_ms": walls[sv["step"]] + sv["held_ms"],
+             "next_step_wall_ms": walls.get(sv["step"] + 1)} for sv in saves]
+    nbytes = os.path.getsize(os.path.join(outdir, "checkpoint-6steps"))
+    log({"phase": "timing", "what": "bin.train_vocoder interval saves, HiFi-GAN V1", "batch_size": GAN_B,
+         "checkpoint_bytes": nbytes, "saves": rows, "step_wall_ms": walls, "seconds": seconds})
+    if ([(r["step"], r["wait"]) for r in rows] != [(2, True), (4, False), (6, False)]
+            or sorted(os.listdir(outdir)) != ["checkpoint-2steps", "checkpoint-4steps", "checkpoint-6steps",
+                                              "config.yml"]):
+        raise AssertionError(f"the vocoder CLI's interval saves: {rows}, files {sorted(os.listdir(outdir))}")
+    saved = ckpt.read_checkpoint(os.path.join(outdir, "checkpoint-6steps"))
+    for k, v in tr.state["gen"]["params"].state_dict().items():
+        if not torch.equal(saved["gen"]["params"][k], v.cpu()):
+            raise AssertionError(f"the background save of step 6 differs from the state at its end: {k}")
+    shutil.rmtree(outdir)
 
 
 def step_walls(step_times):
@@ -1858,7 +1933,7 @@ def registry_optimizer_phase(torch, trained, dev):
     resumed = train.main([*args, "--set", "train_max_steps=3", "--set", "save_interval_steps=100"])
     torch.cuda.synchronize()
     reg_flash = dict(fa.launches)
-    per_kernel = {k: sum(n for (kern, _, _), n in reg_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
+    per_kernel = {k: sum(n for (kern, *_), n in reg_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
     calls = cfg.n_text_encoder_layer + cfg.n_mel_encoder_layer + cfg.n_decoder_layer
     log({"phase": "main_path", "what": "bin.train, EFTS-Transformer, registry optimizer",
          "optimizer": REGISTRY_OPTIMIZER, "losses": first_losses + [m["loss"] for m in resumed.metrics_log],
@@ -2562,22 +2637,27 @@ MRT_TOL = {"metric_rel": 1e-5, "mu": 1e-4, "mu_top": 1e-6, "update": 1e-4}
 # generator's Adam update is a sign and is not compared
 MRT_GAN_MU = {"gen": (1e-3, 2e-4), "disc": (1e-4, 1e-6)}
 MRT_CNN_B = 128  # the EFTS-CNN yamls' batch
-MRT_MODES = {"efts_cnn": ("dp", "tp", "sp"), "efts_transformer": ("dp", "tp"), "hifigan_v1": ("dp", "tp")}
-MRT_MESHES = {"dp": (2, 1), "tp": (1, 2), "sp": (1, 2), "dp+tp": (2, 2)}
-# each multi-rank task's world and modes: dp+tp takes four ranks
+MRT_MODES = {"efts_cnn": ("dp", "tp", "sp"), "efts_transformer": ("dp", "tp", "sp"), "hifigan_v1": ("dp", "tp")}
+MRT_MESHES = {"dp": (2, 1), "tp": (1, 2), "sp": (1, 2), "dp+tp": (2, 2), "dp+sp": (2, 2), "sp4": (1, 4)}
+# each multi-rank task's world and modes: dp+tp and dp+sp take four ranks,
+# and so does the transformer's sp over 4 ranks on the corpus's T2 = 640
+# (`efts_transformer_t640`: 160 rows a rank, the kernels' padded rows)
 MRT_WORLDS = {"train_two_ranks": (2, MRT_MODES),
-              "train_four_ranks": (4, {name: ("dp+tp",) for name in MRT_MODES})}
+              "train_four_ranks": (4, {"efts_cnn": ("dp+tp",), "efts_transformer": ("dp+tp", "dp+sp"),
+                                       "efts_transformer_t640": ("sp4",), "hifigan_v1": ("dp+tp",)})}
+MRT_B = {"efts_cnn": MRT_CNN_B, "efts_transformer": TRAIN_B, "efts_transformer_t640": TRAIN_B, "hifigan_v1": GAN_B}
+MRT_T640 = 640
 # the yaml's optimizer, its warmup cut to 4 steps so a first update is not lost in rounding
 MRT_OPTIMIZER = {**YAML_OPTIMIZER, "scheduler_params": {"warmup_steps": 4}}
 
 
 def mrt_batch(name, b):
     """The model's seeded batch of `b` rows: EFTS-CNN at T1=96, T2=512; the
-    EFTS-Transformer at 4c's T1=128, T2=512; the GAN's V1 segments of 8192
-    (tones in noise) with both mels."""
+    EFTS-Transformer at 4c's T1=128, T2=512 (`efts_transformer_t640`: 640);
+    the GAN's V1 segments of 8192 (tones in noise) with both mels."""
     rng = np.random.default_rng(7)
-    if name == "efts_transformer":
-        full = train_batch(rng, 76, 80)
+    if name.startswith("efts_transformer"):
+        full = train_batch(rng, 76, 80, t2=MRT_T640 if name.endswith("t640") else TRAIN_T2)
         return {k: v[:b] for k, v in full.items()}
     if name == "efts_cnn":
         tl = rng.integers(T1 // 2, T1 + 1, b).astype(np.int32)
@@ -2640,6 +2720,19 @@ def mrt_params(state, mesh=None):
         return {k: v.detach().float().cpu() for k, v in d.items()}
 
     return {side: (cpu(s["params"]), cpu(s["opt_state"]["mu"])) for side, s in sides.items()}
+
+
+def mrt_flash_per_step(model, mode, mesh) -> dict:
+    """K4's launches {(kernel, Tq, Tk, segmented): n} a step on a rank of
+    `mesh` [data, model]: the text encoder's 4 calls at (T1, T1), the mel
+    encoder's 2 and the decoder's 4 at (T2 / m padded to 64, T2) under sp,
+    at (T2, T2) else; none for the other models."""
+    if not model.startswith("efts_transformer"):
+        return {}
+    t2 = MRT_T640 if model.endswith("t640") else TRAIN_T2
+    tq = t2 // mesh[1] if "sp" in mode else t2
+    return {(kern, *shape, True): n for kern in ("fwd", "dkv", "dq")
+            for shape, n in (((T1_TR, T1_TR), 4), ((tq + -tq % 64, t2), 6))}
 
 
 def mrt_compare_tf32(got, ref, p0) -> tuple[dict, list]:
@@ -2789,7 +2882,7 @@ def train_rank_main(opts) -> int:
                 del state, step
                 for mode in MRT_MODES[name]:
                     fa.reset_launches()
-                    state, step = mrt_setup(name, dev, mesh, mode == "sp")
+                    state, step = mrt_setup(name, dev, mesh, "sp" in mode)
                     state, m = step(state, batch)
                     got = mrt_params(state, mesh)
                     equal = (all(float(m[k]) == float(m_ref[k]) for k in m_ref)
@@ -2804,7 +2897,8 @@ def train_rank_main(opts) -> int:
         elif opts.rank_task in MRT_WORLDS:
             modes = MRT_WORLDS[opts.rank_task][1]
             meshes = {MRT_MESHES[m]: make_mesh(*MRT_MESHES[m]) for m in sorted({m for v in modes.values() for m in v})}
-            for name, b in (("efts_cnn", MRT_CNN_B), ("efts_transformer", TRAIN_B), ("hifigan_v1", GAN_B)):
+            for name in modes:
+                b = MRT_B[name]
                 batch = mrt_batch(name, b)
                 ref = p0 = None
                 if rank == 0:  # one card's step, on rank 0 alone, before the meshes'
@@ -2820,7 +2914,7 @@ def train_rank_main(opts) -> int:
                 dist.barrier()
                 for mode in modes[name]:
                     mesh = meshes[MRT_MESHES[mode]]
-                    state, step = mrt_setup(name, dev, mesh, mode == "sp")
+                    state, step = mrt_setup(name, dev, mesh, "sp" in mode)
                     blk = {k: split_batch(v, mesh) for k, v in batch.items()}
                     fa.reset_launches()
                     torch.cuda.reset_peak_memory_stats(dev)
@@ -2836,16 +2930,17 @@ def train_rank_main(opts) -> int:
                                 metrics=metrics, step_s=secs, peak_mb=peak, params_sha256=mrt_digest(got),
                                 flash_launches=[[*k, n] for k, n in flash.items()])
                     if rank == 0:
-                        worst, fails = (mrt_compare_tf32(got, ref, p0) if name == "efts_transformer"
+                        tf32 = name.startswith("efts_transformer")
+                        worst, fails = (mrt_compare_tf32(got, ref, p0) if tf32
                                         else mrt_compare(got, ref, p0, gan=name == "hifigan_v1"))
                         rel = {k: abs(metrics[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-30) for k in m_ref}
                         tol = ({"metric_rel": MRT_TOL["metric_rel"], **TRAIN_TOL, **UPDATE_TOL}
-                               if name == "efts_transformer" else
+                               if tf32 else
                                {**MRT_TOL, **({"gan_mu": MRT_GAN_MU} if name == "hifigan_v1" else {})})
                         line.update(metric_rel_err=rel, worst=worst, failing=fails[:5], one_card_peak_mb=one_peak,
                                     tolerance=tol)
                         if fails or max(rel.values()) > MRT_TOL["metric_rel"]:
-                            failed.append(f"{name} {mode} over two ranks disagrees with one card: {line}")
+                            failed.append(f"{name} {mode} over {opts.world} ranks disagrees with one card: {line}")
                     report(**line)
                     del state, step, got
                     torch.cuda.empty_cache()
@@ -2865,7 +2960,7 @@ def multi_rank_training_phase(torch, new_launches, work):
     and ii. two and four ranks under gloo run at once, each in its own processes;
     then iii. bin.train and bin.train_vocoder over two ranks under gloo, and
     rank 0's checkpoints resumed on one card. Returns the ranks' flash
-    launches {path: {(kernel, T, segmented): n}}."""
+    launches {path: {(kernel, Tq, Tk, segmented): n}}."""
     from efficient_tts_tpu_torch.bench.corpus import make_corpus
     from efficient_tts_tpu_torch.bin import train, train_vocoder
     from efficient_tts_tpu_torch.utils.config import load_config
@@ -2882,18 +2977,17 @@ def multi_rank_training_phase(torch, new_launches, work):
             for p in procs:
                 p.kill()
     flash, digests = {}, {}
-    # K4 a step on every rank: the text encoder's 4 calls at T1, the mel
-    # encoder's 2 and the decoder's 4 at T2, each forward, dkv and dq
-    per_step = {(kern, t, True): n for kern in ("fwd", "dkv", "dq") for t, n in ((T1_TR, 4), (TRAIN_T2, 6))}
+    # K4 a step on every rank of the transformer (`mrt_flash_per_step`)
     for task, (procs, _) in runs:
         for r in range(len(procs)):
             with open(os.path.join(work, f"{task}.rank{r}.json")) as f:
                 for line in json.load(f):
                     log({"phase": "multi_rank_training", **line})
                     got = {tuple(k): n for *k, n in line["flash_launches"]}
-                    if got != (per_step if line["model"] == "efts_transformer" else {}):
+                    want = mrt_flash_per_step(line["model"], line["mode"], line["mesh"])
+                    if got != want:
                         raise AssertionError(f"{line['model']} {line['mode']} on rank {r} of {line['world']}: flash "
-                                             f"launches {got}, expected {per_step} for the transformer, none else")
+                                             f"launches {got}, expected {want}")
                     if line["world"] > 1:
                         tag = f"multi_rank_training_{line['backend']}{line['world']}_{line['model']}_{line['mode']}"
                         flash[f"{tag}_rank{r}"] = {tuple(k): n for *k, n in line["flash_launches"]}
@@ -2992,6 +3086,7 @@ def main(argv=None) -> int:
     from efficient_tts_tpu_torch.ops import flash_attention as fa
     from efficient_tts_tpu_torch.ops import mrf, mrf_int8
     from efficient_tts_tpu_torch.ops import probe_matmul as pm
+    from efficient_tts_tpu_torch.utils import flops as flop_counts
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3083,6 +3178,10 @@ def main(argv=None) -> int:
     bwd_rows = {}
     for t, segmented in bwd_shapes:
         check_flash_backward(torch, fa, t, segmented, dev, bwd_rows)
+    # 3b. the forward, dkv and dq at a sequence-parallel rank's rows against
+    # the whole sequence's keys (the transformer's mel side over m ranks, 4r)
+    for tq, tk in SP_FLASH_SHAPES:
+        flash_rows[f"sp_t{tq}_{tk}"] = check_flash_backward(torch, fa, tq, True, dev, bwd_rows, tk=tk)
     # the f32 MRF kernel (K3's f32 mode) at the V1 stage shapes
     f32_rows = {}
     for c, t in stages:
@@ -3179,7 +3278,7 @@ def main(argv=None) -> int:
         tr, voc, tr_batches[0][0], tr_batches[0][1], T2, compute_dtype=bf16)
     torch.cuda.synchronize()
     tr_launches, tr_flash = dict(mrf.launches), flash_by_segments(fa.launches)
-    if any(kernel != "fwd" for kernel, _, _ in fa.launches):
+    if any(kernel != "fwd" for kernel, *_ in fa.launches):
         raise AssertionError(f"synthesis launched a backward kernel: {fa.launches}")
     n_tr = len(tr_batches) + 1
     expected = {("bf16", c): 18 * n_tr for c, _ in stages}
@@ -3298,7 +3397,7 @@ def main(argv=None) -> int:
     state_k, step_k, metrics_k, counts = run_steps(model_k, train_cfg, N_TRAIN_STEPS)
     train_launches = dict(fa.launches)
     n_t1, n_t2 = train_cfg.n_text_encoder_layer, train_cfg.n_mel_encoder_layer + train_cfg.n_decoder_layer
-    per_step = {(kern, t, True): n for kern in ("fwd", "dkv", "dq") for t, n in ((T1_TR, n_t1), (TRAIN_T2, n_t2))}
+    per_step = {(kern, t, t, True): n for kern in ("fwd", "dkv", "dq") for t, n in ((T1_TR, n_t1), (TRAIN_T2, n_t2))}
     log({"phase": "main_path", "model": "efts_transformer_training", "steps": N_TRAIN_STEPS,
          "flash_launches": {"/".join(map(str, k)): n for k, n in train_launches.items()},
          "expected_per_step": {"/".join(map(str, k)): n for k, n in per_step.items()},
@@ -3571,7 +3670,7 @@ def main(argv=None) -> int:
         multi_rank_training_flash = multi_rank_training_phase(torch, new_launches, work)
     # the flash kernels at the CLI's other lengths, held as phase 3 holds
     # them at T=512 and T=128 (the corpus's buckets give T of 128-896)
-    cli_shapes = sorted({(t, seg) for (_, t, seg) in (*train_cli_flash, *registry_flash)} - set(bwd_shapes))
+    cli_shapes = sorted({(t, seg) for (_, t, _, seg) in (*train_cli_flash, *registry_flash)} - set(bwd_shapes))
     for t, segmented in cli_shapes:
         flash_rows[f"train_cli_t{t}"] = check_flash_backward(torch, fa, t, segmented, dev, bwd_rows)
 
@@ -3587,9 +3686,17 @@ def main(argv=None) -> int:
         ms = t_kernel["median"]
         audio_s = B * T2 * hop / voc_cfg.sampling_rate
         dtype = "f32" if cdt is None else "bf16"
+        # MFU of EFTS-CNN's synthesis (`utils/flops.py`, bench.py's counts:
+        # 5.19 TFLOP a batch) over the card's dense peak for the dtype
+        mfu = {}
+        if name == "efts_cnn":
+            work = (flop_counts.efts_cnn_infer_flops(efts_cfg, B, text.shape[1], T2)
+                    + flop_counts.generator_flops(voc_cfg, B, T2))
+            peak = flop_counts.peak_flops_for(torch.cuda.get_device_name(0), cdt)
+            mfu = {"flops": work, "peak_flops": peak, "mfu": work / (ms / 1e3) / peak if peak else None}
         log({"phase": "timing", "what": "synthesize_fixed", "model": name, "B": B, "T1": text.shape[1],
              "T2": T2, "dtype": dtype, "ms": ms, "ms_p25": t_kernel["p25"], "ms_p75": t_kernel["p75"],
-             "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"],
+             "n": t_kernel["n"], "audio_s_per_s": audio_s / (ms / 1e3), extra: t_plain["median"], **mfu,
              **({"utils_profiling_time_step_ms": time_step_ms} if time_step_ms else {})})
         if time_step_ms and abs(time_step_ms / ms - 1) > 0.10:
             raise AssertionError(f"utils.profiling.time_step gave {time_step_ms} ms against {ms} ms here")
@@ -3746,15 +3853,19 @@ def main(argv=None) -> int:
          "peaks": 1979 / 989})
 
     cli_fwd_shapes = tuple((f"train_cli_t{t}", TRAIN_B, t, segmented) for t, segmented in cli_shapes)
-    for name, fb, t, segmented in FLASH_FWD_SHAPES + cli_fwd_shapes:
-        q, k, v, seg = flash_inputs(torch, t, seed=t, dev=dev, segmented=segmented, b=fb)
+    sp_fwd_shapes = tuple((f"sp_t{tq}_{tk}", TRAIN_B, tq, True, tk) for tq, tk in SP_FLASH_SHAPES)
+    for name, fb, t, segmented, *keys in FLASH_FWD_SHAPES + cli_fwd_shapes + sp_fwd_shapes:
+        tk = keys[0] if keys else None
+        q, k, v, seg = flash_inputs(torch, t, seed=t + (tk or 0), dev=dev, segmented=segmented, b=fb, tk=tk)
         scale = 96**-0.5
         mask = None if seg is None else (seg.q[:, None, :, None] == seg.kv[:, None, None, :])
         training = fb == TRAIN_B  # the training path asks for the residuals m, l
+        # the library computes the rows the function needs (not a padded q's)
+        q_rows, mask_rows = q[:, :, :t], None if mask is None else mask[:, :, :t]
         calls = {
             "kernel": lambda: fa._forward_kernel(q, k, v, seg, scale, residuals=training),
             "plain": lambda: fa.flash_attention_reference(q, k, v, seg, scale, return_residuals=training),
-            "library": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+            "library": lambda: F.scaled_dot_product_attention(q_rows, k, v, attn_mask=mask_rows, scale=scale),
         }
         # the kernel's device time per launch that the profile recorded (it
         # may miss launches of the first calls); beside it the per-call sum
@@ -3769,18 +3880,21 @@ def main(argv=None) -> int:
         call_ms = {name_: time_ms(fn) for name_, fn in calls.items()}
         k_host_us = host_us(torch, calls["kernel"])
         ms = {name_: dev_ms[name_] if dev_ms[name_] is not None else call_ms[name_]["median"] for name_ in dev_ms}
-        bound, bound_by, flops = flash_bound_ms(q, seg)
+        bound, bound_by, flops = flash_bound_ms(q, k, seg, rows=t)
+        key = ("fwd", q.shape[2], k.shape[2], True)
         if not training:
             by_path = {"efts_transformer": tr_flash.get(segmented, 0),
                        "serve_engine_transformer": serve_flash.get(segmented, 0),
                        **{path: n.get(segmented, 0) for path, n in multi_rank_flash.items()}}
         else:
-            by_path = {"efts_transformer_training": train_launches.get(("fwd", t, True), 0),
-                       "train_cli_transformer": train_cli_flash.get(("fwd", t, True), 0),
-                       "train_cli_transformer_registry_optimizer": registry_flash.get(("fwd", t, True), 0),
-                       **{path: n.get(("fwd", t, True), 0) for path, n in multi_rank_training_flash.items()}}
-        # a length only the CLI's corpus gives counts the CLI's launches
-        n_launch = by_path["train_cli_transformer" if name.startswith("train_cli") else next(iter(by_path))]
+            by_path = {"efts_transformer_training": train_launches.get(key, 0),
+                       "train_cli_transformer": train_cli_flash.get(key, 0),
+                       "train_cli_transformer_registry_optimizer": registry_flash.get(key, 0),
+                       **{path: n.get(key, 0) for path, n in multi_rank_training_flash.items()}}
+        # a length only the CLI's corpus gives counts the CLI's launches; a
+        # sequence-parallel rank's rows, 4r's ranks' launches summed
+        n_launch = (sum(by_path.values()) if tk else
+                    by_path["train_cli_transformer" if name.startswith("train_cli") else next(iter(by_path))])
         row = {
             "name": "flash_attention_fwd_" + name, "route": "cuda",
             "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
@@ -3793,8 +3907,9 @@ def main(argv=None) -> int:
             "timed_by": "device" if per_launch else "queued events", "launches_recorded_per_call": launches_seen,
         }
         kernels.append(row)
-        log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "segment_ids": segmented,
-             "residuals": training, "tflops": flops / (k_dev * 1e9), "bound_share": bound / k_dev,
+        log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "keys": k.shape[2], "rows": t,
+             "segment_ids": segmented, "residuals": training, "tflops": flops / (k_dev * 1e9),
+             "bound_share": bound / k_dev,
              "per_call_all_kernels_ms": sum(v_[0] for v_ in prof.values()), "queued_event_ms": k_queued,
              "window_kernels": {key[:60]: v_ for key, v_ in prof.items()},
              "call_ms": {name_: v_["median"] for name_, v_ in call_ms.items()},
@@ -3802,22 +3917,26 @@ def main(argv=None) -> int:
              "kernel_host_us": k_host_us, "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
              **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by",
                                        "launches_recorded_per_call")}})
-        del q, k, v, seg, mask, calls, prof
+        del q, k, v, seg, mask, q_rows, mask_rows, calls, prof
 
     # the backward kernels at the training path's shapes (every call masked):
     # device time of each kernel, of its plain version from the same
     # residuals, and of SDPA's backward (dq, dk and dv in one call)
     pallas_lines = {"dkv": 1121, "dq": 1456}
-    for t, segmented in ((TRAIN_T2, True), (T1_TR, True), *cli_shapes):
-        q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1, dev=dev, segmented=segmented, b=TRAIN_B, n=4)
+    for t, tk, segmented in ((TRAIN_T2, None, True), (T1_TR, None, True), *((t, None, s) for t, s in cli_shapes),
+                             *((tq, tk, True) for tq, tk in SP_FLASH_SHAPES)):
+        q, k, v, do, seg = flash_inputs(torch, t, seed=t + 1 + (tk or 0), dev=dev, segmented=segmented, b=TRAIN_B,
+                                        n=4, tk=tk)
         scale = 96**-0.5
         o, m, l = fa._forward_kernel(q, k, v, seg, scale, residuals=True)
         mask = seg.q[:, None, :, None] == seg.kv[:, None, None, :]
-        qs, ks_, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask, scale=scale)
+        # the library on the rows the function needs (not a padded q's)
+        qs, ks_, vs = (x.detach().requires_grad_(True) for x in (q[:, :, :t], k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask[:, :, :t], scale=scale)
+        do_rows = do[:, :, :t]
 
         def library_bwd():
-            return torch.autograd.grad(lib_out, (qs, ks_, vs), do, retain_graph=True)
+            return torch.autograd.grad(lib_out, (qs, ks_, vs), do_rows, retain_graph=True)
 
         def kernel_bwd():
             return fa._backward_kernels(q, k, v, o, m, l, do, seg, scale)
@@ -3842,35 +3961,38 @@ def main(argv=None) -> int:
 
             p_dev = device_ms(torch, plain)
             p_ms = p_dev if p_dev is not None else time_ms(plain)["median"]
-            bound, bound_by, flops = flash_bwd_bound_ms(q, seg, part)
+            bound, bound_by, flops = flash_bwd_bound_ms(q, k, seg, part, rows=t)
             k_ms = k_dev
-            by_path = {"efts_transformer_training": train_launches.get((part, t, segmented), 0),
-                       "train_cli_transformer": train_cli_flash.get((part, t, segmented), 0),
-                       "train_cli_transformer_registry_optimizer": registry_flash.get((part, t, segmented), 0),
-                       **{path: n.get((part, t, segmented), 0) for path, n in multi_rank_training_flash.items()}}
-            cli_only = (t, segmented) in cli_shapes
+            key = (part, q.shape[2], k.shape[2], segmented)
+            by_path = {"efts_transformer_training": train_launches.get(key, 0),
+                       "train_cli_transformer": train_cli_flash.get(key, 0),
+                       "train_cli_transformer_registry_optimizer": registry_flash.get(key, 0),
+                       **{path: n.get(key, 0) for path, n in multi_rank_training_flash.items()}}
+            cli_only = tk is None and (t, segmented) in cli_shapes
             row = {
-                "name": f"flash_attention_{part}_" + ("text_encoder" if t == T1_TR
+                "name": f"flash_attention_{part}_" + (f"sp_t{t}_{tk}" if tk else "text_encoder" if t == T1_TR
                                                       else f"train_cli_t{t}" if cli_only else f"t{t}"),
                 "route": "cuda", "source": "efficient_tts_tpu_torch/csrc/flash_attention.cu",
                 "replaces": "efficient_tts_tpu/nn/attention.py:56",
                 "pallas_call": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{pallas_lines[part]} (jax 0.9.0)",
-                "launches": by_path["train_cli_transformer" if cli_only else "efts_transformer_training"],
+                # a sequence-parallel rank's rows: 4r's ranks' launches summed
+                "launches": (sum(by_path.values()) if tk else
+                             by_path["train_cli_transformer" if cli_only else "efts_transformer_training"]),
                 "launches_by_path": by_path,
-                **bwd_rows[part, t, segmented], "tolerance": BWD_TOL,
+                **bwd_rows[key], "tolerance": BWD_TOL,
                 "precision": "tf32 operands, f32 softmax, di and sums",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
                 "library_call": "F.scaled_dot_product_attention backward, f32, boolean mask (dq, dk, dv together)",
                 "timed_by": "device", "launches_recorded_per_call": launches_seen,
             }
             kernels.append(row)
-            log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "segment_ids": segmented,
-                 "tflops": flops / (k_ms * 1e9), "bound_share": bound / k_ms,
+            log({"phase": "timing", "what": row["name"], "shape": list(q.shape), "keys": k.shape[2], "rows": t,
+                 "segment_ids": segmented, "tflops": flops / (k_ms * 1e9), "bound_share": bound / k_ms,
                  "backward_call_ms": call_ms["median"], "backward_call_ms_p25": call_ms["p25"],
                  "backward_call_ms_p75": call_ms["p75"], "backward_call_host_us": bwd_host_us,
                  "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
                  **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
-        del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, per_launch
+        del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, do_rows, per_launch
 
     # 5b. an earlier tree's kernels in turns with this tree's
     if opts.baseline:

@@ -16,7 +16,8 @@ steps with interval logs, evals (at most 8 dev batches; a dev set smaller
 than a batch still gives one) and checkpoints. The merged config is dumped
 to `outdir/config.yml`, from which `bin/inference.py` rebuilds the model.
 Without `--resume` or `--pretrain` it resumes from the newest checkpoint
-in the outdir, and it saves once more at the end. The weights start from
+in the outdir, and it saves once more at the end, waiting for the write
+(the interval saves write in the background). The weights start from
 the seeded numpy init (`init.py`, `seed` in the config). Runs on the card
 unless `--use_cpu` is given; without a card it raises.
 
@@ -220,7 +221,7 @@ def main(argv=None):
             logging.info("auto-resuming from %s", latest)
             trainer.load(latest, load_only_params=False)
     trainer.run()
-    trainer.save()
+    trainer.save(wait=True)
     return trainer
 
 

@@ -25,7 +25,8 @@ reads the stored mels, so `--device_corpus on` with `--fine_tuning` raises.
 `HiFiGANTrainer` runs the GAN steps with interval logs, evals (the first
 4 x batch_size dev segments) and checkpoints. Without `--resume` it
 resumes from the newest checkpoint in the outdir, and it saves at the end
-unless it has just saved that step. The weights start from the seeded
+unless it has just saved that step; the interval saves write in the
+background, and `main` returns once every write is on disk. The weights start from the seeded
 numpy init (`init.py`, seed 0). Runs on the card unless `--use_cpu` is
 given; without a card it raises. `main` returns the trainer, whose
 `data_path` says which path ran.
@@ -173,7 +174,8 @@ def main(argv=None):
         trainer.load(resume)
     trainer.run()
     if trainer.saved_step != trainer.state["step"]:
-        trainer.save()
+        trainer.save(wait=True)
+    ckpt.wait_for_saves()
     return trainer
 
 

@@ -15,7 +15,9 @@ mask. `cfg.attn_impl` chooses the attention path call by call
 runs the flash kernel when T1 is a multiple of 128 and the decoder when
 the mel length t2 is. In training every block gets its key-padding mask,
 and with dropout off (the kernel path) T1 = 128 and T2 = 512 put all 10
-attention calls of a step on the flash kernels.
+attention calls of a step on the flash kernels. Under sequence parallelism
+(`forward(..., sp=)`) the mel side's 6 calls run the kernels at the rank's
+T2 / m query rows against the whole T2.
 """
 
 from __future__ import annotations
@@ -111,19 +113,26 @@ class EftsTransformer(nn.Module):
         h = self._text_hidden(text, text_mask)
         return self.text_value(h) * text_mask.to(h.dtype)[:, :, None]
 
-    def forward(self, text, text_lengths, speech, speech_lengths, gen=None, deterministic: bool = True) -> dict:
+    def forward(self, text, text_lengths, speech, speech_lengths, gen=None, deterministic: bool = True,
+                sp=None) -> dict:
         """Training forward: text [B, T1] ids, speech [B, T2, odim] target
         mel, lengths [B] -> {loss, mel_loss, duration_loss, imv [B, T2],
         reconst_alpha [B, T1, T2], mel_pred [B, T2, odim], aligned_e [B, T1]}.
         With `deterministic=False` and a dropout rate, `gen` (a CPU
-        generator) drives every dropout mask."""
+        generator) drives every dropout mask. With `sp` (a
+        `parallel/sequence_parallel.py:SeqShard`) `speech` is the rank's
+        frames of the mel, the frame-indexed outputs are the rank's, and the
+        losses are the rank's part of the batch's (as `EftsCNN.forward`)."""
         cfg = self.cfg
         if not self.training_modules:
             raise RuntimeError("this EftsTransformer was built for inference; build it with "
                                "training_modules=True (compat: trainable=True) to train it")
         t1, t2 = text.shape[1], speech.shape[1]
         text_mask = sequence_mask(text_lengths, t1)
-        mel_mask = sequence_mask(speech_lengths, t2)
+        mel_mask = sequence_mask(speech_lengths, t2) if sp is None else sp.mask(speech_lengths, t2)
+        # the self-attention's key-padding mask: the whole sequence's frames
+        key_mask = (mel_mask if sp is None else sequence_mask(speech_lengths, t2 * sp.extent))[:, None, :]
+        offset = 0 if sp is None else sp.index * t2
         text_mel_maskf = (text_mask[:, :, None] & mel_mask[:, None, :]).float()
         train = not deterministic and cfg.dropout_rate > 0
         r_text, r_mel, r_dec, r_dur = split_generator(gen, 4) if train else (None,) * 4
@@ -137,15 +146,16 @@ class EftsTransformer(nn.Module):
         cdt = as_dtype(cfg.compute_dtype)
         speech_c = speech.to(cdt) if cdt is not None else speech
         mel_h = leaky_relu(self.mel_prenet(speech_c), 0.1)
-        mel_h = add_positional_encoding(mel_h, scale=self.pe_scale.to(mel_h.dtype))
-        mel_h = self.mel_encoder(mel_h, mel_mask[:, None, :], gen=r_mel, **blk)
+        mel_h = add_positional_encoding(mel_h, scale=self.pe_scale.to(mel_h.dtype), offset=offset)
+        mel_h = self.mel_encoder(mel_h, key_mask, gen=r_mel, sp=sp, **blk)
 
         alpha = scaled_dot_attention(mel_h, text_key, text_mask) * text_mel_maskf
         p = index_vector(text_mask)
-        imv = imv_from_alpha(alpha, p, mel_mask, text_lengths)
-        e = aligned_positions(imv, p, mel_mask, text_mask, sigma_e=cfg.sigma_e)
-        reconst_alpha = alignment_from_positions(e, t2, sigma=cfg.sigma, mel_mask=mel_mask,
-                                                 text_mask=text_mask) * text_mel_maskf
+        imv = (imv_from_alpha if sp is None else sp.imv_from_alpha)(alpha, p, mel_mask, text_lengths)
+        e = (aligned_positions if sp is None else sp.aligned_positions)(imv, p, mel_mask, text_mask,
+                                                                        sigma_e=cfg.sigma_e)
+        reconst_alpha = alignment_from_positions(e, t2, sigma=cfg.sigma, mel_mask=mel_mask, text_mask=text_mask,
+                                                 offset=offset) * text_mel_maskf
 
         alpha_c = reconst_alpha.to(cdt) if cdt is not None else reconst_alpha
         # operands in the compute dtype, f32 accumulation
@@ -153,7 +163,7 @@ class EftsTransformer(nn.Module):
         if cdt is not None:
             expanded = expanded.to(cdt)
         expanded = expanded * mel_mask.to(expanded.dtype)[:, :, None]
-        dec = self.decoder(expanded, mel_mask[:, None, :], gen=r_dec, **blk)
+        dec = self.decoder(expanded, key_mask, gen=r_dec, sp=sp, **blk)
         mel_pred = self.mel_out(dec).float() * mel_mask.float()[:, :, None]
 
         # the duration target: log(delta e + offset) of the detached e
@@ -161,8 +171,13 @@ class EftsTransformer(nn.Module):
         delta_e = torch.cat([e_sg[:, :1], e_sg[:, 1:] - e_sg[:, :-1]], dim=1)
         log_delta_e = torch.where(text_mask, torch.log(delta_e + cfg.duration_offset), torch.zeros_like(delta_e))
         dur_pred = self.duration_predictor(text_value, ~text_mask, cfg.dropout_rate, r_dur, deterministic).float()
-        mel_loss, dur_loss = fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
-                                             use_masking=cfg.use_masking, loss_normalize=cfg.loss_normalize)
+        if sp is None:
+            mel_loss, dur_loss = fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
+                                                 use_masking=cfg.use_masking, loss_normalize=cfg.loss_normalize)
+        else:
+            mel_loss, dur_loss = sp.fastspeech_loss(mel_pred, speech, dur_pred, log_delta_e, text_mask, mel_mask,
+                                                    speech_lengths, use_masking=cfg.use_masking,
+                                                    loss_normalize=cfg.loss_normalize)
         return {"loss": mel_loss + dur_loss, "mel_loss": mel_loss, "duration_loss": dur_loss, "imv": imv,
                 "reconst_alpha": reconst_alpha, "mel_pred": mel_pred, "aligned_e": e_sg}
 

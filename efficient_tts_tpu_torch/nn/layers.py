@@ -51,12 +51,13 @@ def split_generator(gen: torch.Generator, n: int) -> list[torch.Generator]:
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, deterministic: bool,
-            window: tuple[int, int] | None = None) -> torch.Tensor:
+            window: tuple[int, int] | None = None, axis: int = 1) -> torch.Tensor:
     """Keep each element with probability 1 - rate and scale it by 1 / (1 -
     rate), else 0 (`efficient_tts_tpu/nn/layers.py:dropout`). The mask is
     drawn on x's device from a generator seeded by one draw of `gen`. With
-    `window=(length, start)` x is frames start.. of a sequence of `length`
-    along axis 1, and takes those frames of the whole sequence's mask."""
+    `window=(length, start)` x is entries start.. of a sequence of `length`
+    along `axis` (the frames, axis 1, by default), and takes those entries
+    of the whole sequence's mask."""
     if deterministic or rate <= 0.0:
         return x
     if gen is None:
@@ -67,8 +68,10 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, determini
         mask = torch.rand(x.shape, generator=dev_gen, device=x.device) < keep
     else:
         length, start = window
-        whole = torch.rand((x.shape[0], length, *x.shape[2:]), generator=dev_gen, device=x.device)
-        mask = whole[:, start:start + x.shape[1]] < keep
+        shape = list(x.shape)
+        shape[axis] = length
+        whole = torch.rand(shape, generator=dev_gen, device=x.device)
+        mask = whole.narrow(axis, start, x.shape[axis]) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

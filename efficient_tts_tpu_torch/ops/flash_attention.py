@@ -47,9 +47,9 @@ from efficient_tts_tpu_torch.ops import launch_counts
 
 # the library's DEFAULT_MASK_VALUE as f32 sees it
 MASK_VALUE = float(np.float32(-0.7 * float(np.finfo(np.float32).max)))
-# launches of the CUDA kernels, keyed by (kernel, Tq, whether the call had
-# segment ids) with kernel "fwd", "dkv" or "dq"; only the kernel wrappers add
-launches: dict[tuple[str, int, bool], int] = {}
+# launches of the CUDA kernels, keyed by (kernel, Tq, Tk, whether the call
+# had segment ids) with kernel "fwd", "dkv" or "dq"; only the kernel wrappers add
+launches: dict[tuple[str, int, int, bool], int] = {}
 
 
 class SegmentIds(NamedTuple):
@@ -64,8 +64,8 @@ def reset_launches() -> None:
     launches.clear()
 
 
-def _count(kernel: str, tq: int, segment_ids) -> None:
-    launch_counts.add(launches, (kernel, tq, segment_ids is not None))
+def _count(kernel: str, tq: int, tk: int, segment_ids) -> None:
+    launch_counts.add(launches, (kernel, tq, tk, segment_ids is not None))
 
 
 def _logits(q, k, segment_ids, sm_scale):
@@ -187,7 +187,7 @@ def _forward_kernel(q, k, v, segment_ids, sm_scale, residuals: bool):
             float(sm_scale), MASK_VALUE, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attention forward launch failed: CUDA error {rc}")
-    _count("fwd", tq, segment_ids)
+    _count("fwd", tq, tk, segment_ids)
     return (out, m, l) if residuals else out
 
 
@@ -216,12 +216,12 @@ def _backward_kernels(q, k, v, o, m, l, do, segment_ids, sm_scale):
                                          float(sm_scale), MASK_VALUE, stream)
         if rc != 0:
             raise RuntimeError(f"flash_attention dkv launch failed: CUDA error {rc}")
-        _count("dkv", tq, segment_ids)
+        _count("dkv", tq, tk, segment_ids)
         rc = lib.flash_attention_bwd_dq(*ins, dq.data_ptr(), b, h, tq, tk, dk, strides,
                                         float(sm_scale), MASK_VALUE, stream)
         if rc != 0:
             raise RuntimeError(f"flash_attention dq launch failed: CUDA error {rc}")
-        _count("dq", tq, segment_ids)
+        _count("dq", tq, tk, segment_ids)
     return dq, dk_, dv
 
 

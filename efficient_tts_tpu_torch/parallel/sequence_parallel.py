@@ -1,12 +1,13 @@
-"""Sequence parallelism for EFTS-CNN training: the mel frames split over the
-mesh's 'model' axis.
+"""Sequence parallelism for the acoustic models' training: the mel frames
+split over the mesh's 'model' axis.
 
 Counterpart of JAX's `sequence_parallel=True` (`efficient_tts_tpu/train/
 efts_train_step.py:57-73`), where GSPMD partitions the mel encoder, the
 alignment tensors [B, T1, T2] and the decoder along T2. Here each rank of a
 model row holds T2 / m consecutive frames of its data block (global frame
 indices for the masks and positions) and the whole text side, and
-`EftsCNN.forward(..., sp=SeqShard(mesh))` computes:
+`EftsCNN.forward(..., sp=SeqShard(mesh))` and
+`EftsTransformer.forward(..., sp=)` compute:
 
   * the res-conv towers on the rank's frames, each conv's input extended by
     (k - 1) / 2 * dilation frames of the neighbouring ranks (`halo`; zeros at
@@ -18,7 +19,11 @@ indices for the masks and positions) and the whole text side, and
     exponentials and the weighted positions;
   * the losses: the rank's part of the block's masked means, over the
     block's counts, which the lengths give; the duration loss, replicated on
-    the row, is carried by the row's first rank only.
+    the row, is carried by the row's first rank only;
+  * the transformer's self-attention over T2 (`nn/attention.py`): the
+    queries of the rank's frames against the keys and values of the whole
+    sequence, which `gather` collects from the row; its 'SAME' convs take
+    halos and its position-wise layers stay on the rank's frames.
 
 Each rank's loss is its part of the global loss and the collectives'
 backward sums the ranks' gradients (`parallel/tensor_parallel.py`), so the
@@ -59,6 +64,13 @@ class SeqShard:
     def mask(self, lengths: torch.Tensor, t: int) -> torch.Tensor:
         """[B, t] True on the rank's valid frames."""
         return self.positions(t, lengths.device)[None, :].to(lengths.dtype) < lengths[:, None]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, t * m, ...]: the frames x [B, t, ...] of every rank of the row,
+        in order. The backward sums the gradient over the row and keeps the
+        rank's frames (`all_gather_stack`): every rank's queries add a part
+        to each key's and value's gradient."""
+        return torch.cat(all_gather_stack(x, self.group).unbind(0), dim=1)
 
     def halo(self, x: torch.Tensor, left: int, right: int) -> torch.Tensor:
         """x [B, t, ...] with `left` frames of the previous rank before it and

@@ -35,10 +35,11 @@ step computes it:
     global norm, computed once (`sharded_grad_norm`: the sharded leaves'
     squares summed over the model group), is both `grad_norm` and the norm
     the optimizer's clip takes. dp+tp composes both.
-  * sp (`sequence_parallel=True`, EFTS-CNN only): the model row splits the
+  * sp (`sequence_parallel=True`, either model): the model row splits the
     mel frames (`parallel/sequence_parallel.py`); the gradients are summed
-    over the whole mesh. The EFTS-Transformer raises NotImplementedError:
-    its mel encoder's self-attention spans T2.
+    over the whole mesh. The EFTS-Transformer's self-attention over T2 takes
+    its queries from the rank's frames and its keys and values from the
+    whole sequence, gathered over the row.
 The metrics are the global ones on every rank. The dropout generator is
 the caller's: one per data row, equal across a model row
 (`parallel/mesh.py:data_seed`).
@@ -54,7 +55,6 @@ import torch
 import torch.distributed as dist
 
 from efficient_tts_tpu_torch.models import model_class_for
-from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN
 from efficient_tts_tpu_torch.parallel.distributed import all_reduce_tensors, rank_device
 from efficient_tts_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from efficient_tts_tpu_torch.parallel.sequence_parallel import SeqShard
@@ -125,12 +125,8 @@ def make_train_step(cfg, tx, mesh=None, sequence_parallel: bool = False, accum_s
     dev = resolve_device(device)
     model_cls = model_class_for(cfg, training=True)
     deterministic = cfg.dropout_rate <= 0.0
-    if sequence_parallel:
-        if mesh is None:
-            raise ValueError("sequence_parallel requires a mesh")
-        if not issubclass(model_cls, EftsCNN):
-            raise NotImplementedError(f"sequence parallelism of {model_cls.__name__}: its mel encoder's "
-                                      "self-attention spans T2 (ROADMAP Queue 1, item 11c); train it with dp or tp")
+    if sequence_parallel and mesh is None:
+        raise ValueError("sequence_parallel requires a mesh")
     data_group, reduce_group, sp = _groups(mesh, sequence_parallel)
 
     def grads_and_metrics(model, params, batch, gen, w_mel=1.0, w_dur=1.0):

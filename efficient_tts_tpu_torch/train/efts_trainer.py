@@ -9,7 +9,10 @@ eval and interval saves:
   * a non-finite loss saves the state as `diverged-state-{step}` (invisible
     to `latest_checkpoint`) and raises FloatingPointError; the metrics are
     read one step late, so that state is one or two updates past the step;
-  * SIGTERM and Ctrl-C save a checkpoint before the exception leaves `run`;
+  * the interval saves return once the state is copied to host memory and
+    write in the background (`save(wait=False)`, as JAX's orbax saves); the
+    divergence dump, the SIGTERM and Ctrl-C save (made before the exception
+    leaves `run`), pruning and every `load` wait for the write;
   * `step_times` keeps, for each step, its epoch, its wall time from the
     request for the batch to the readback of the step before (evals and
     saves left out) and the part of it spent waiting on the batch iterator;
@@ -103,15 +106,19 @@ class EftsTrainer:
         self.state = (create_state(model, self.tx) if self.mesh is None else
                       shard_state(model, self.tx, self.mesh, device=self.device))
 
-    def save(self, name: str | None = None) -> str:
+    def save(self, wait: bool = False, name: str | None = None) -> str:
         """Write the state (under a mesh: gathered, by rank 0; collective) and
-        return the checkpoint's path."""
-        path = ckpt.save_train_state(self.outdir, self.state, name, self.mesh, self.max_keep_checkpoints)
+        return the checkpoint's path. The host snapshot is taken before this
+        returns; without `wait` the disk write goes on in the background
+        (`train/checkpoint.py`), as the interval saves do. Pruning
+        (`max_keep_checkpoints`) waits for it."""
+        path = ckpt.save_train_state(self.outdir, self.state, name, self.mesh, self.max_keep_checkpoints, wait)
         if self.primary:
-            log.info("saved checkpoint %s", path)
+            log.info("saved checkpoint %s%s", path, "" if wait else " (writing in the background)")
         return path
 
     def load(self, path, load_only_params: bool = False):
+        ckpt.settle(self.mesh)
         saved = ckpt.read_checkpoint(path, ckpt.state_device(self.state))
         if self.mesh is not None:
             saved = slice_saved(saved, self.state, self.mesh)
@@ -180,7 +187,7 @@ class EftsTrainer:
                 consume(pending)
                 pending = None
         except KeyboardInterrupt:
-            self.save()
+            self.save(wait=True)
             raise
         return self.state
 
@@ -188,7 +195,7 @@ class EftsTrainer:
         if math.isfinite(loss_val):
             return
         log.error("non-finite loss %r at step %d: saving the state and stopping", loss_val, step)
-        self.save(name=f"diverged-state-{step}")
+        self.save(wait=True, name=f"diverged-state-{step}")
         raise FloatingPointError(f"training diverged: loss={loss_val} at step {step}")
 
     def evaluate(self, step: int) -> dict:

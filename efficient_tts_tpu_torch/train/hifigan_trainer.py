@@ -13,6 +13,9 @@ Runs a GAN `train_step` (`train/hifigan_train_step.py`) until
     tracked (else the raw one; folded once per eval for the inference
     generator, whose MRF stages run the card's f32 kernel) and saves, with
     `max_keep_checkpoints`; SIGTERM and Ctrl-C save before leaving `run`;
+  * the interval saves write in the background (`save(wait=False)`); the
+    divergence dump, the SIGTERM and Ctrl-C save, pruning and every `load`
+    wait for the write;
   * `step_times` (each step's epoch, wall time and data wait), `metrics_log`
     and `eval_log` keep their last `HISTORY` entries.
 `load` reconciles the EMA as the JAX trainer does: a checkpoint with an EMA
@@ -79,14 +82,17 @@ class HiFiGANTrainer:
         self.saved_step = None  # the step of the last `checkpoint-{step}steps` written
         os.makedirs(outdir, exist_ok=True)
 
-    def save(self, name: str | None = None) -> str:
+    def save(self, wait: bool = False, name: str | None = None) -> str:
         """Write the state (under a mesh: gathered, by rank 0; collective) and
-        return the checkpoint's path."""
-        path = ckpt.save_train_state(self.outdir, self.state, name, self.mesh, self.max_keep_checkpoints)
+        return the checkpoint's path. The host snapshot is taken before this
+        returns; without `wait` the disk write goes on in the background
+        (`train/checkpoint.py`), as the interval saves do. Pruning
+        (`max_keep_checkpoints`) waits for it."""
+        path = ckpt.save_train_state(self.outdir, self.state, name, self.mesh, self.max_keep_checkpoints, wait)
         if name is None:
             self.saved_step = self.state["step"]
         if self.primary:
-            log.info("saved vocoder checkpoint %s", path)
+            log.info("saved vocoder checkpoint %s%s", path, "" if wait else " (writing in the background)")
         return path
 
     def load(self, path: str) -> None:
@@ -94,6 +100,7 @@ class HiFiGANTrainer:
         checkpoint without discriminators (a reference generator converted by
         `bin/convert_checkpoint.py`) leaves them and their optimizer state as
         they are: the seeded init."""
+        ckpt.settle(self.mesh)
         saved = ckpt.read_checkpoint(path, ckpt.state_device(self.state))
         tracking, on_disk = "ema" in self.state, "ema" in saved
         if on_disk and not tracking:
@@ -134,7 +141,7 @@ class HiFiGANTrainer:
                     log.error("non-finite %s=%r at step %d: saving the state and stopping; resume from the last "
                               "interval checkpoint, not this one (it is 1-2 updates past the divergence)",
                               k, vals[k], pstep)
-                    self.save(name=f"diverged-state-{pstep}")
+                    self.save(wait=True, name=f"diverged-state-{pstep}")
                     raise FloatingPointError(f"GAN training diverged: {k}={vals[k]} at step {pstep}")
             for k, v in vals.items():
                 totals[k] += v
@@ -177,7 +184,7 @@ class HiFiGANTrainer:
                 consume(pending)
                 pending = None
         except KeyboardInterrupt:
-            self.save()
+            self.save(wait=True)
             raise
         return self.state
 

@@ -26,6 +26,10 @@ MRF_STAGES = ((256, 4096), (128, 32768), (64, 65536), (32, 131072))
 V1_KERNEL_SIZES = (3, 7, 11)
 V1_CONVS_PER_BRANCH = 6  # dilations 1/3/5, two convs each
 TRAIN_B = 64  # the EFTS-Transformer training batch
+# (Tq, Tk) of the mel side's attention on a sequence-parallel rank: T2 = 512
+# over 2 and 4 ranks, and the corpus's T2 = 640 over 4 (160 rows, which the
+# kernels take padded to 192)
+SP_FLASH_SHAPES = ((256, 512), (128, 512), (160, 640))
 
 
 def bound_ms(ops: float, nbytes: float, peak: str) -> tuple[float, str]:
@@ -44,22 +48,25 @@ def mrf_stage_work(b: int, t: int, c: int, taps, act_bytes: int, weight_bytes: f
     return ops, nbytes + len(taps) * c * 4 * per_conv_vectors
 
 
-def flash_work(b: int, h: int, t: int, dk: int, segmented: bool) -> tuple[float, float]:
-    """(operations, bytes) of the flash forward in f32: q k^T and p v, q, k,
-    v read and o written once, and the two int32 segment id arrays."""
-    return 4.0 * b * h * t * t * dk, 4 * b * h * t * dk * 4 + (2 * b * t * 4 if segmented else 0)
+def flash_work(b: int, h: int, tq: int, tk: int, dk: int, segmented: bool) -> tuple[float, float]:
+    """(operations, bytes) of the flash forward in f32, tq query rows against
+    tk keys: q k^T and p v, q, k, v read and o written once, and the two
+    int32 segment id arrays."""
+    return (4.0 * b * h * tq * tk * dk,
+            (2 * tq + 2 * tk) * b * h * dk * 4 + ((tq + tk) * b * 4 if segmented else 0))
 
 
-def flash_backward_work(b: int, h: int, t: int, dk: int, part: str, segmented: bool = False) -> tuple[float, float]:
+def flash_backward_work(b: int, h: int, tq: int, tk: int, dk: int, part: str,
+                        segmented: bool = False) -> tuple[float, float]:
     """(operations, bytes) of the backward's two kernels in f32: "dkv"
     recomputes s and dp and forms dv and dk (4 products), "dq" recomputes s
-    and dp and forms dq (3). Each reads q, k, v, do, the [B, H, T] l, m and
+    and dp and forms dq (3). Each reads q, k, v, do, the [B, H, Tq] l, m and
     di and the two int32 segment id arrays once and writes its gradients
-    once."""
-    n_products, n_out = {"dkv": (4, 2), "dq": (3, 1)}[part]
-    head = b * h * t * dk * 4
-    return (2.0 * n_products * b * h * t * t * dk,
-            (4 + n_out) * head + 3 * b * h * t * 4 + (2 * b * t * 4 if segmented else 0))
+    (dk and dv of the tk keys, or dq of the tq rows) once."""
+    n_products, out_rows = {"dkv": (4, 2 * tk), "dq": (3, tq)}[part]
+    row = b * h * dk * 4
+    return (2.0 * n_products * b * h * tq * tk * dk,
+            (2 * tq + 2 * tk + out_rows) * row + 3 * b * h * tq * 4 + ((tq + tk) * b * 4 if segmented else 0))
 
 
 def mrf_stage_launch_bytes(b: int, t: int, c: int, dilation_sizes, act_bytes: int = 2) -> dict:
@@ -119,17 +126,27 @@ def table(b: int = 16) -> list[dict]:
                      "with_absmax_ms": (fl["bytes"] + fl["absmax_bytes"]) / PEAK_BYTES * 1e3})
     # synthesis (B=16) and the training batch, where every call is masked
     for bb, t, seg in ((b, 512, False), (b, 128, True), (TRAIN_B, 512, True), (TRAIN_B, 128, True)):
-        ops, nbytes = flash_work(bb, 4, t, 96, seg)
+        ops, nbytes = flash_work(bb, 4, t, t, 96, seg)
         ms, by = bound_ms(ops, nbytes, "tf32")
         rows.append({"kernel": "K4 flash forward", "shape": [bb, 4, t, 96], "segment_ids": seg, "peak": "tf32",
                      "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
     # the backward at the training batch (lj_efts_transformer_phnseq.yaml: 64)
     for part in ("dkv", "dq"):
         for t, seg in ((512, False), (128, True)):
-            ops, nbytes = flash_backward_work(TRAIN_B, 4, t, 96, part, seg)
+            ops, nbytes = flash_backward_work(TRAIN_B, 4, t, t, 96, part, seg)
             ms, by = bound_ms(ops, nbytes, "tf32")
             rows.append({"kernel": f"K4 flash backward {part}", "shape": [TRAIN_B, 4, t, 96], "segment_ids": seg,
                          "peak": "tf32", "ops": ops, "bytes": nbytes, "bound_ms": ms, "bound_by": by})
+    # a sequence-parallel rank's rows against the whole sequence (the mel
+    # side of the transformer's step over m ranks): the real rows' work
+    for tq, tk in SP_FLASH_SHAPES:
+        for part in ("fwd", "dkv", "dq"):
+            ops, nbytes = (flash_work(TRAIN_B, 4, tq, tk, 96, True) if part == "fwd"
+                           else flash_backward_work(TRAIN_B, 4, tq, tk, 96, part, True))
+            ms, by = bound_ms(ops, nbytes, "tf32")
+            rows.append({"kernel": f"K4 flash {part}, sequence-parallel rows", "shape": [TRAIN_B, 4, tq, tk, 96],
+                         "segment_ids": True, "peak": "tf32", "ops": ops, "bytes": nbytes, "bound_ms": ms,
+                         "bound_by": by})
     # the rate probe: [M, 128] x [128, 128], 8 products per tile (scripts/probe_int8_pallas.py)
     m = 1 << 20
     for peak, elem in (("bf16", 2), ("int8", 1)):

@@ -14,15 +14,15 @@ joined by "/"). The trainers' eval images are not drawn.
          are short on data row 0 and long on row 1 (also with 2
          micro-batches a rank), tp (1, 2) and sp (1, 2); one step under dp
          with 2 micro-batches for each of `DP_VARIANTS`' normalizations;
-         the EFTS-Transformer under dp and tp; the GAN under dp (2, 1); the
+         the EFTS-Transformer under dp, tp and sp; the GAN under dp (2, 1); the
          tp gradients of EFTS-CNN and of a generator (transposed convs
          included) beside the whole model's; EftsTrainer evals, and
          checkpoints saved at dp 2 and tp 2 and one more step on each mesh;
          then the two CLIs,
          bin.train and bin.train_vocoder, 2 steps each on the corpus of
          OUT_DIR/paths.json, counting each rank's writes;
-  world4 (4 ranks): EFTS-CNN under dp+tp and dp+sp (2, 2), the GAN under
-         dp+tp, and EFTS-CNN under dp+tp with dropout 0.1 with the dropout
+  world4 (4 ranks): EFTS-CNN under dp+tp and dp+sp (2, 2), the
+         EFTS-Transformer under dp+sp, the GAN under dp+tp, and EFTS-CNN under dp+tp with dropout 0.1 with the dropout
          masks of every rank;
   one (1 process, no group): the one-process references: two steps of
          EFTS-CNN and of the EFTS-Transformer, one GAN step, and the one-card
@@ -59,7 +59,7 @@ VOC_CFG = HiFiGANConfig(upsample_initial_channel=64, resblock_kernel_sizes=(3,),
 # the other two normalizations of the losses' counts
 CNN_UTT_CFG = dataclasses.replace(CNN_CFG, loss_normalize="utterance")
 CNN_NOMASK_CFG = dataclasses.replace(CNN_CFG, use_masking=False)
-MODES = {"dp": (2, 1), "tp": (1, 2), "sp": (1, 2), "dp+tp": (2, 2)}
+MODES = {"dp": (2, 1), "tp": (1, 2), "sp": (1, 2), "dp+tp": (2, 2), "dp+sp": (2, 2)}
 # dp variants held to JAX's step after one update: (config, accum_steps);
 # each block's share of a micro-batch is by the normalization's own count
 DP_VARIANTS = {"dp_utt_accum2": (CNN_UTT_CFG, 2), "dp_nomask_accum2": (CNN_NOMASK_CFG, 2)}
@@ -419,8 +419,9 @@ def main():
         phases.append(("cnn_dp_accum2", lambda: train_mode(out, "cnn_dp_accum2", CNN_CFG, meshes["dp"], accum=2)))
         phases += [(f"cnn_{mode}", lambda mode=mode, cfg=cfg, accum=accum: train_mode(
             out, f"cnn_{mode}", cfg, meshes["dp"], accum=accum, steps=1)) for mode, (cfg, accum) in DP_VARIANTS.items()]
-        phases += [(f"tr_{mode}", lambda mode=mode: train_mode(out, f"tr_{mode}", TR_CFG, meshes[mode]))
-                   for mode in ("dp", "tp")]
+        phases += [(f"tr_{mode}", lambda mode=mode: train_mode(out, f"tr_{mode}", TR_CFG, meshes["tp" if sp else mode],
+                                                               sp=sp))
+                   for mode, sp in (("dp", False), ("tp", False), ("sp", True))]
         phases += [("gan_dp", lambda: gan_mode(out, "gan_dp", meshes["dp"])),
                    ("tp_gradients", lambda: tp_gradients(out, meshes["tp"])),
                    ("checkpoints", lambda: checkpoints(out, meshes, out_dir, rank)),
@@ -429,6 +430,7 @@ def main():
         mesh = make_mesh(2, 2)
         phases = [("cnn_dp+tp", lambda: train_mode(out, "cnn_dp+tp", CNN_CFG, mesh)),
                   ("cnn_dp+sp", lambda: train_mode(out, "cnn_dp+sp", CNN_CFG, mesh, sp=True)),
+                  ("tr_dp+sp", lambda: train_mode(out, "tr_dp+sp", TR_CFG, mesh, sp=True)),
                   ("gan_dp+tp", lambda: gan_mode(out, "gan_dp+tp", mesh)),
                   ("cnn_dropout", lambda: train_mode(out, "cnn_dropout", dataclasses.replace(CNN_CFG, dropout_rate=0.1),
                                                      mesh, dropout_seed=5)),

@@ -16,7 +16,9 @@ the plain backward against the library's reference). On the card it builds
   * lengths that are not a multiple of the kernels' 128-row tiles or cover
     one tile only (T = 64, 192) and a long one (T = 1024), narrow heads (dk
     = 8, 40), a query row whose segment matches no key (its p is uniform,
-    not NaN), and Tq != Tk.
+    not NaN), and Tq != Tk, also as a sequence-parallel rank calls them
+    (`nn/attention.py:attend`: the rank's rows of a key-padded sequence
+    against all its keys, 160 rows padded to 192 with an id no key has).
 
 Tolerance: the kernels round q, k, v, do, p and ds to TF32 (2^-11
 relative); the plain versions are f32. On N(0, 1) inputs the gradients'
@@ -94,7 +96,7 @@ def test_backward_matches_plain_gradients_at_training_shapes(device, shape, segm
     fa.reset_launches()
     got = _grads(fa.flash_attention, q, k, v, do, seg, scale)
     torch.cuda.synchronize()
-    assert fa.launches == {(kernel, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}
+    assert fa.launches == {(kernel, t, t, segmented): 1 for kernel in ("fwd", "dkv", "dq")}
     ref = _grads(fa.flash_attention_reference, q, k, v, do, seg, scale)
     for out, r in zip(got, ref):
         assert out.shape == r.shape and out.transpose(1, 2).is_contiguous()
@@ -226,7 +228,7 @@ def test_no_gradient_needed_launches_the_forward_alone(device):
     fa.reset_launches()
     with torch.no_grad():
         fa.flash_attention(q.detach().requires_grad_(True), k, v)
-    assert fa.launches == {("fwd", 128, False): 1}
+    assert fa.launches == {("fwd", 128, 128, False): 1}
 
 
 def test_backward_rejects_what_it_does_not_take(device):
@@ -238,3 +240,28 @@ def test_backward_rejects_what_it_does_not_take(device):
         fa._backward_kernels(q, k, v, o, m, l, do[:, :, :64], None, 1.0)
     with pytest.raises(ValueError):
         fa._backward_kernels(q, k, v, o, m, l, do.double(), None, 1.0)
+
+
+@pytest.mark.parametrize("t,m", [(512, 2), (512, 4), (640, 4)])
+def test_sequence_parallel_rows_through_attend(device, t, m):
+    """Every rank's rows: the output and dq of its rows, and dk and dv (the
+    rank's part of them) of the kernels against the plain path's, one
+    launch of each kernel at (the rows padded to 64, T)."""
+    from efficient_tts_tpu_torch.nn.attention import attend
+    from efficient_tts_tpu_torch.ops import flash_attention as fa
+
+    b, tq = 8, t // m
+    q, k, v, _ = _inputs(b, 4, t, 96, seed=t + m, device=device)
+    lengths = torch.tensor([t, t // 2, t // 3, 5, t, t - 1, t // 4, 64])
+    mask = (torch.arange(t)[None, :] < lengths[:, None])[:, None, :].to(device)
+    for i in range(m):
+        rows = slice(i * tq, (i + 1) * tq)
+        do = torch.randn((b, 4, tq, 96), generator=torch.Generator().manual_seed(i)).to(device)
+        fa.reset_launches()
+        got = _grads(lambda *x, **_: attend(*x[:3], mask, "flash", start=i * tq), q[:, :, rows], k, v, do, None, 0)
+        torch.cuda.synchronize()
+        assert fa.launches == {(kernel, tq + -tq % 64, t, True): 1 for kernel in ("fwd", "dkv", "dq")}
+        ref = _grads(lambda *x, **_: attend(*x[:3], mask, "flash_plain", start=i * tq), q[:, :, rows], k, v, do,
+                     None, 0)
+        for out, r in zip(got, ref):
+            _check(out, r)

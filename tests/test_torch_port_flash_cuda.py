@@ -65,7 +65,7 @@ def test_kernel_matches_plain_version(device, dk, t, segmented):
     fa.reset_launches()
     out = fa.flash_attention(q, k, v, seg, scale)
     torch.cuda.synchronize()
-    assert fa.launches == {("fwd", t, segmented): 1} and out.shape == q.shape
+    assert fa.launches == {("fwd", t, t, segmented): 1} and out.shape == q.shape
     _check(out, fa.flash_attention_reference(q, k, v, seg, scale))
 
 
@@ -97,7 +97,7 @@ def test_kernel_at_one_tile_odd_tiles_and_both_block_sizes(device, b, h, t, segm
     fa.reset_launches()
     out = fa.flash_attention(q, k, v, seg, 96**-0.5)
     torch.cuda.synchronize()
-    assert fa.launches == {("fwd", t, segmented): 1}
+    assert fa.launches == {("fwd", t, t, segmented): 1}
     _check(out, fa.flash_attention_reference(q, k, v, seg, 96**-0.5))
 
 

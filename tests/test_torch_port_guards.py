@@ -54,7 +54,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "compat", "compat.torch_import", "compat.torch_export", "bin.convert_checkpoint", "bin.export_torch",
                  "bin.prepare_data", "bin.prepare_databaker", "bin.data_utils", "utils.plotting",
                  "utils.profiling", "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
-                 "parallel.tensor_parallel", "parallel.sequence_parallel", "nn.init", "version"):
+                 "parallel.tensor_parallel", "parallel.sequence_parallel", "nn.init", "version",
+                 "utils.flops"):
         assert f"efficient_tts_tpu_torch.{name}" in expected
 
 

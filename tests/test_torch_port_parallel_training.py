@@ -5,8 +5,8 @@ the CPU; and the last modules, `nn/init.py` and `version.py`.
 Ranks are spawned processes on gloo (`tests/_torch_parallel_training_worker.py`,
 which imports neither JAX nor this conftest), joined through a file://
 rendezvous: one launch of 2 ranks, one of 4, and the one-process references
-in a third process, all at once, while JAX's sharded steps run here on the
-virtual CPU devices. Sizes: EFTS-CNN and the EFTS-Transformer with 64
+in a third process, all at once, while JAX's sharded steps run on the
+virtual CPU devices in four processes of their own. Sizes: EFTS-CNN and the EFTS-Transformer with 64
 channels and 2-layer towers on a batch of 8 (T1 = 24, T2 = 64) whose rows are
 short on data row 0 and long on row 1, under the char yaml's optimizer with
 a 4-step warmup; the GAN with the narrow generator of `test_torch_port_gan.py`
@@ -77,7 +77,6 @@ from efficient_tts_tpu_torch.data.loader import device_prefetch
 from efficient_tts_tpu_torch.nn import init as tinit
 from efficient_tts_tpu_torch.parallel import split_batch
 from efficient_tts_tpu_torch.train import checkpoint as ckpt
-from efficient_tts_tpu_torch.train.efts_train_step import make_train_step
 from efficient_tts_tpu_torch.train.efts_trainer import EftsTrainer
 from efficient_tts_tpu_torch.train.optim import optimizer_from_dict
 from efficient_tts_tpu_torch.utils import plotting
@@ -87,7 +86,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_parallel_training_worker.py")
 JAX_RTOL, ONE_RTOL = 1e-4, 1e-5
 CNN_MODES = {"dp": "world2", "tp": "world2", "sp": "world2", "dp+tp": "world4"}
-TR_MODES = {"dp": "world2", "tp": "world2"}
+TR_MODES = {"dp": "world2", "tp": "world2", "sp": "world2", "dp+sp": "world4"}
 GAN_MODES = {"dp": "world2", "dp+tp": "world4"}
 VOC_KW = dict(upsample_initial_channel=64, resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]],
               segment_size=1024)
@@ -215,19 +214,23 @@ def _jax_cnn():
 
 
 def _jax_transformer_and_init():
-    return {**{("tr", mode): _jax_acoustic(W.TR_CFG, W.MODES[mode]) for mode in TR_MODES}, "init": _jax_redrawn()}
+    return {**{("tr", mode): _jax_acoustic(W.TR_CFG, W.MODES[mode]) for mode in ("dp", "tp")}, "init": _jax_redrawn()}
+
+
+def _jax_transformer_sp():
+    return {("tr", mode): _jax_acoustic(W.TR_CFG, W.MODES[mode], sp=True) for mode in ("sp", "dp+sp")}
 
 
 @pytest.fixture(scope="module")
 def jax_steps(launches):
-    """JAX's sharded steps, computed while the ranks run, in three processes
+    """JAX's sharded steps, computed while the ranks run, in four processes
     of their own (with this one's environment: the virtual CPU devices):
-    EFTS-CNN's, the transformer's with `initialize`'s, and the GAN's (20 s
-    of XLA compile)."""
-    with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"), initializer=_jax_cpu) as pool:
-        parts = [pool.submit(f) for f in (_jax_gan, _jax_cnn, _jax_transformer_and_init)]
-        gan, cnn, rest = (p.result() for p in parts)
-        return {**cnn, **rest, "gan": gan}
+    EFTS-CNN's, the transformer's dp and tp with `initialize`'s, its sp and
+    dp+sp, and the GAN's (20 s of XLA compile)."""
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"), initializer=_jax_cpu) as pool:
+        parts = [pool.submit(f) for f in (_jax_gan, _jax_cnn, _jax_transformer_and_init, _jax_transformer_sp)]
+        gan, cnn, rest, sp = (p.result() for p in parts)
+        return {**cnn, **rest, **sp, "gan": gan}
 
 
 def _sub(r, prefix):
@@ -468,12 +471,87 @@ def test_vocoder_device_corpus_on_raises_in_a_world(monkeypatch, tmp_path):
         train_vocoder.main(["--wav_scp", "x.scp", "--outdir", str(tmp_path), "--device_corpus", "on", "--use_cpu"])
 
 
-def test_transformer_has_no_sequence_parallel_step():
-    mesh = type("M", (), {"shape": {"data": 1, "model": 2}, "model_group": None, "model_index": 0,
-                          "data_group": None, "group": None})()
-    with pytest.raises(NotImplementedError, match="spans T2"):
-        make_train_step(W.TR_CFG, optimizer_from_dict(W.optimizer_config()), mesh=mesh, sequence_parallel=True,
-                        device="cpu")
+# the EFTS-Transformer's sequence-parallel pieces on one process: a rank's
+# rows (T2 = 384 over m = 4: 96 rows, padded to 128 on the flash path)
+# against the whole sequence's
+
+SP_T, SP_M = 384, 4
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: these shapes are small, and Tier-1's six workers
+    share the host's cores (their OpenMP threads spin against each other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _sp_inputs():
+    rng = np.random.default_rng(11)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal((3, 2, SP_T, 8)).astype(np.float32)) for _ in range(4))
+    lengths = torch.tensor([SP_T, 200, 50])
+    return q, k, v, w, (torch.arange(SP_T)[None, :] < lengths[:, None])[:, None, :]
+
+
+def _attend_grads(q, k, v, w, **kw):
+    """(output, dq, dk, dv) of sum(output * w) through `attend`."""
+    from efficient_tts_tpu_torch.nn.attention import attend
+
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = attend(*xs, **kw)
+    return (out.detach(), *torch.autograd.grad((out * w).sum(), xs))
+
+
+@pytest.mark.parametrize("impl", ["flash_plain", "xla"])
+def test_sequence_parallel_attention_rows_match_the_whole_sequence(impl, one_thread):
+    """Each rank's query rows against the whole sequence's keys, with key
+    padding (a short row whose later ranks hold pad queries only): the
+    rows of the whole attention, and the ranks' key and value gradients sum
+    to the whole's (the padded rows add nothing)."""
+    q, k, v, w, mask = _sp_inputs()
+    out, dq, dk, dv = _attend_grads(q, k, v, w, mask=mask, impl=impl)
+    t = SP_T // SP_M
+    dk_sum, dv_sum = torch.zeros_like(dk), torch.zeros_like(dv)
+    for i in range(SP_M):
+        rows = slice(i * t, (i + 1) * t)
+        o_i, dq_i, dk_i, dv_i = _attend_grads(q[:, :, rows], k, v, w[:, :, rows], mask=mask, impl=impl, start=i * t)
+        assert o_i.shape == (3, 2, t, 8)
+        torch.testing.assert_close(o_i, out[:, :, rows], rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(dq_i, dq[:, :, rows], rtol=1e-6, atol=1e-7)
+        dk_sum, dv_sum = dk_sum + dk_i, dv_sum + dv_i
+    torch.testing.assert_close(dk_sum, dk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dv_sum, dv, rtol=1e-5, atol=1e-6)
+
+
+def test_positional_encoding_of_a_rank_is_its_rows_of_the_whole_table(one_thread):
+    from efficient_tts_tpu_torch.nn.attention import add_positional_encoding
+
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal((2, SP_T, 16)).astype(np.float32))
+    whole = add_positional_encoding(x, scale=torch.tensor(1.5))
+    t = SP_T // SP_M
+    for i in range(SP_M):
+        rows = slice(i * t, (i + 1) * t)
+        got = add_positional_encoding(x[:, rows], scale=torch.tensor(1.5), offset=i * t)
+        torch.testing.assert_close(got, whole[:, rows], rtol=0, atol=0)
+
+
+def test_attention_dropout_of_a_rank_is_its_rows_of_the_whole_mask(one_thread):
+    """The XLA branch in training: a rank's attention probabilities take
+    their rows of the [B, H, T, T] mask the whole sequence draws (every rank
+    of a model row holds the same generator)."""
+    q, k, v, w, mask = _sp_inputs()
+    kw = dict(mask=mask, impl="xla", dropout_rate=0.3, deterministic=False)
+    out = _attend_grads(q, k, v, w, gen=torch.Generator().manual_seed(5), **kw)[0]
+    plain = _attend_grads(q, k, v, w, mask=mask, impl="xla")[0]
+    assert (out - plain).abs().max() > 1e-2  # the mask drops probabilities
+    t = SP_T // SP_M
+    for i in range(SP_M):
+        rows = slice(i * t, (i + 1) * t)
+        got = _attend_grads(q[:, :, rows], k, v, w[:, :, rows], gen=torch.Generator().manual_seed(5), start=i * t,
+                            **kw)[0]
+        torch.testing.assert_close(got, out[:, :, rows], rtol=1e-6, atol=1e-7)
 
 
 def test_device_prefetch_with_a_mesh_keeps_the_rank_rows():

@@ -392,7 +392,7 @@ def test_roofline_bounds_of_the_flash_forward():
     1.094 ms, by operations, as `chip_smoke.py` has always reported it."""
     from efficient_tts_tpu_torch.utils import roofline
 
-    ops, nbytes = roofline.flash_work(16, 4, 512, 96, segmented=False)
+    ops, nbytes = roofline.flash_work(16, 4, 512, 512, 96, segmented=False)
     assert (ops, nbytes) == (6442450944.0, 50331648)
     ms, by = roofline.bound_ms(ops, nbytes, "tf32")
     assert by == "bytes" and ms == pytest.approx(0.015024, rel=1e-4)

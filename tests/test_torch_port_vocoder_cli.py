@@ -20,11 +20,15 @@ a tiny EFTS-CNN (24 channels, one res-conv layer a block):
     the same forward on that utterance alone (atol 1e-5), and the lengths
     `MelAudioSegmentDataset(fine_tuning=True)` then reads; one fine-tuning
     step of the CLI on them.
+Each test removes the checkpoints it wrote once it has read them (each
+holds the full discriminators, about 0.8 GB), and the module's runs go at
+its end.
 """
 
 import json
 import logging
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -165,7 +169,8 @@ def vocoder_runs(corpus):
     second = _warned(_cli(corpus, outdir, "--train_max_steps", "3", "--save_interval_steps", "3"))
     third = _warned(_cli(corpus, outdir, "--train_max_steps", "4", "--ema_decay", "0.99", "--resume",
                          os.path.join(outdir, "checkpoint-3steps")))
-    return {"outdir": outdir, "first": first, "listing": listing, "second": second, "third": third}
+    yield {"outdir": outdir, "first": first, "listing": listing, "second": second, "third": third}
+    shutil.rmtree(outdir)
 
 
 def test_train_vocoder_cli_trains_evals_and_checkpoints(vocoder_runs):
@@ -248,6 +253,7 @@ def test_extract_gta_writes_the_lengths_the_dataset_reads(corpus, tmp_path):
     tuned = train_vocoder.main(_cli(corpus, str(tmp_path / "exp_ft"), "--train_max_steps", "1", "--fine_tuning",
                                     "--base_mels_path", gta))
     assert tuned.state["step"] == 1 and all(np.isfinite(v) for v in tuned.metrics_log[0].values())
+    shutil.rmtree(tmp_path / "exp_ft")
 
 
 def test_device_corpus_on_raises(corpus, tmp_path):
@@ -291,3 +297,4 @@ def test_trainer_divergence_guard_and_bounded_history(tmp_path):
     assert HiFiGANTrainer.HISTORY == 1000 and trainer.metrics_log.maxlen == trainer.eval_log.maxlen == 1000
     # step 4 raised before it was logged; two entries kept of 1-3
     assert [t["step"] for t in trainer.step_times] == [2, 3]
+    os.remove(tmp_path / "diverged-state-3")
