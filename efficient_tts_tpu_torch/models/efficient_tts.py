@@ -36,6 +36,7 @@ from efficient_tts_tpu_torch.ops.alignment import (
     scaled_dot_attention,
 )
 from efficient_tts_tpu_torch.utils.masks import sequence_mask
+from efficient_tts_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,15 +216,16 @@ class EftsCNN(nn.Module):
 
     def infer_decode(self, value, e, text_mask, t2: int, compute_dtype=None):
         """Stage 2 at static mel length t2: (mel [B, t2, odim] f32, alpha')."""
-        reconst_alpha = alignment_from_positions(e, t2, sigma=self.cfg.sigma, text_mask=text_mask)
-        cdt = as_dtype(compute_dtype)
-        alpha = reconst_alpha
-        if cdt is not None:
-            # operands rounded to the compute dtype, f32 accumulation, one rounding
-            value = value.to(cdt).float()
-            alpha = alpha.to(cdt).float()
-        expanded = torch.bmm(alpha.transpose(1, 2), value.float())
-        if cdt is not None:
-            expanded = expanded.to(cdt)
-        mel = self.mel_out(self.decoder(expanded)).float()
-        return mel, reconst_alpha
+        with span("efts.decode", device=True):
+            reconst_alpha = alignment_from_positions(e, t2, sigma=self.cfg.sigma, text_mask=text_mask)
+            cdt = as_dtype(compute_dtype)
+            alpha = reconst_alpha
+            if cdt is not None:
+                # operands rounded to the compute dtype, f32 accumulation, one rounding
+                value = value.to(cdt).float()
+                alpha = alpha.to(cdt).float()
+            expanded = torch.bmm(alpha.transpose(1, 2), value.float())
+            if cdt is not None:
+                expanded = expanded.to(cdt)
+            mel = self.mel_out(self.decoder(expanded)).float()
+            return mel, reconst_alpha

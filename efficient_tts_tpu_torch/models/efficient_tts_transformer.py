@@ -42,6 +42,7 @@ from efficient_tts_tpu_torch.ops.alignment import (
     scaled_dot_attention,
 )
 from efficient_tts_tpu_torch.utils.masks import sequence_mask
+from efficient_tts_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,13 +195,14 @@ class EftsTransformer(nn.Module):
         """Stage 2 at static mel length t2: (mel [B, t2, odim] f32, alpha').
         `compute_dtype=torch.bfloat16` rounds the expansion's operands and
         result to bf16; the decoder's first LayerNorm brings it back to f32."""
-        reconst_alpha = alignment_from_positions(e, t2, sigma=self.cfg.sigma, text_mask=text_mask)
-        cdt = as_dtype(compute_dtype)
-        alpha = reconst_alpha
-        if cdt is not None:
-            # operands rounded to the compute dtype, f32 accumulation, one rounding
-            value = value.to(cdt)
-            alpha = alpha.to(cdt)
-        expanded = torch.bmm(alpha.float().transpose(1, 2), value.float()).to(value.dtype)
-        dec = self.decoder(expanded, attn_impl=self.cfg.attn_impl)
-        return self.mel_out(dec).float(), reconst_alpha
+        with span("efts.decode", device=True):
+            reconst_alpha = alignment_from_positions(e, t2, sigma=self.cfg.sigma, text_mask=text_mask)
+            cdt = as_dtype(compute_dtype)
+            alpha = reconst_alpha
+            if cdt is not None:
+                # operands rounded to the compute dtype, f32 accumulation, one rounding
+                value = value.to(cdt)
+                alpha = alpha.to(cdt)
+            expanded = torch.bmm(alpha.float().transpose(1, 2), value.float()).to(value.dtype)
+            dec = self.decoder(expanded, attn_impl=self.cfg.attn_impl)
+            return self.mel_out(dec).float(), reconst_alpha

@@ -30,6 +30,7 @@ from efficient_tts_tpu_torch.ops.mrf import (conv_order, kernel_channels, kernel
                                              mrf_stage_reference, true_div)
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.precision import full_f32
+from efficient_tts_tpu_torch.utils.profiling import span
 
 LRELU_SLOPE = 0.1
 # `MRFStage.kernel_weights` looks up and makes its cache entry under this
@@ -165,14 +166,15 @@ class HiFiGANGenerator(nn.Module):
     def forward(self, mel, compute_dtype=None, mrf_impl: str = "kernel"):
         """[B, T, num_mels] -> [B, T * total_upsampling] f32 waveform.
         `mrf_impl="plain"` runs the MRF stages' plain PyTorch version."""
-        x = mel if compute_dtype is None else mel.to(compute_dtype)
-        x = self.conv_pre(x)
-        for up, stage in zip(self.ups, self.stages):
-            x = up(leaky_relu(x, LRELU_SLOPE))
-            x = stage(x.contiguous(), mrf_impl)
-        # the reference's F.leaky_relu before conv_post uses torch's default 0.01
-        x = self.conv_post(leaky_relu(x, 0.01))
-        return torch.tanh(x.float())[..., 0]
+        with span("hifigan.generator", device=True):
+            x = mel if compute_dtype is None else mel.to(compute_dtype)
+            x = self.conv_pre(x)
+            for up, stage in zip(self.ups, self.stages):
+                x = up(leaky_relu(x, LRELU_SLOPE))
+                x = stage(x.contiguous(), mrf_impl)
+            # the reference's F.leaky_relu before conv_post uses torch's default 0.01
+            x = self.conv_post(leaky_relu(x, 0.01))
+            return torch.tanh(x.float())[..., 0]
 
 
 def generator_chunked(voc: HiFiGANGenerator, mel, compute_dtype=None, mrf_impl: str = "kernel",

@@ -14,7 +14,13 @@ an asynchronous copy of the waveform to pinned host memory, and returns at
 once; `fetch` waits for that copy alone, so a caller can dispatch the next
 batch before fetching this one (`synthesize` is the two back to back).
 `decode_mel_fixed` is the mel half of stage 2, and `stream_vocoder` vocodes
-a host mel window by window for a low time to first audio.
+a host mel window by window for a low time to first audio. While a torch
+profiler runs, a dispatch records the spans `pipeline.upload` (the ids'
+copy to the device, which waits for the work queued before it),
+`pipeline.stage1` (with its device time), `pipeline.readback` (the host
+blocked on the mel lengths), `pipeline.stage2` (queueing decode, vocoder,
+quantization and the copy), and `fetch` records `pipeline.fetch`
+(`utils/profiling.py`).
 
 Over several ranks (`parallel/`, one process per rank, each on its own
 `device`): `synthesize_dispatch` / `synthesize` / `fetch` take a `mesh` and
@@ -53,6 +59,7 @@ from efficient_tts_tpu_torch.parallel.tensor_parallel import all_gather
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.masks import bucket_length, sequence_mask
 from efficient_tts_tpu_torch.utils.precision import full_f32
+from efficient_tts_tpu_torch.utils.profiling import span
 
 
 AcousticModel = EftsCNN | EftsTransformer
@@ -71,8 +78,10 @@ def _inputs(model, voc, text, text_lengths, device):
     for m in (model, voc):
         if m is not None:
             check_module_device(m, dev)
-    text = torch.as_tensor(np.asarray(text), dtype=torch.long, device=dev)
-    lengths = torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev)
+    # a copy from pageable host memory waits for the stream's earlier work
+    with span("pipeline.upload"):
+        text = torch.as_tensor(np.asarray(text), dtype=torch.long, device=dev)
+        lengths = torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev)
     return text, lengths
 
 
@@ -212,13 +221,14 @@ def fetch(handle: Dispatched) -> np.ndarray:
     for that copy's event alone, not for work queued since). Under a mesh it
     completes the gather of the data rows' blocks, as JAX's `_to_host` does
     with `process_allgather`: every rank gets the whole batch."""
-    if handle.gather is not None:
-        work, parts = handle.gather
-        work.wait()
-        return torch.cat(parts).cpu().numpy()
-    if handle.done is not None:
-        handle.done.synchronize()
-    return handle.wav.numpy()
+    with span("pipeline.fetch"):
+        if handle.gather is not None:
+            work, parts = handle.gather
+            work.wait()
+            return torch.cat(parts).cpu().numpy()
+        if handle.done is not None:
+            handle.done.synchronize()
+        return handle.wav.numpy()
 
 
 def synthesize_dispatch(
@@ -256,19 +266,22 @@ def synthesize_dispatch(
     if mesh is not None:
         text, text_lengths = split_batch(text, mesh), split_batch(text_lengths, mesh)
     with _full_f32():
-        e, value, tmask = _stage1(model, text, text_lengths, duration_correction)
-        mel_lengths = _mel_lengths(e, text_lengths)
+        with span("pipeline.stage1", device=True):
+            e, value, tmask = _stage1(model, text, text_lengths, duration_correction)
+            mel_lengths = _mel_lengths(e, text_lengths)
         if mesh is not None:
             mel_lengths = gather_batch(mel_lengths, mesh)
-        mel_lengths = mel_lengths.cpu().numpy()
+        with span("pipeline.readback"):
+            mel_lengths = mel_lengths.cpu().numpy()
         t_b = time.perf_counter()
         t2 = min(bucket_length(int(mel_lengths.max()), bucket_multiple), max_t2)
-        wav, _, _ = _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2,
-                                       as_dtype(compute_dtype), mrf_impl, output)
-        if mesh is None:
-            handle = _copy_to_host(wav)
-        else:
-            handle = Dispatched(None, None, all_gather(wav, mesh.data_group, async_op=True))
+        with span("pipeline.stage2"):
+            wav, _, _ = _decode_and_vocode(model, voc, e, value, tmask, text_lengths, t2,
+                                           as_dtype(compute_dtype), mrf_impl, output)
+            if mesh is None:
+                handle = _copy_to_host(wav)
+            else:
+                handle = Dispatched(None, None, all_gather(wav, mesh.data_group, async_op=True))
     wav_lengths = np.clip(mel_lengths, 1, t2).astype(np.int32) * voc.cfg.hop_size
     if timings is not None:
         timings.update(stage1_s=t_b - t_a, dispatch_s=time.perf_counter() - t_b, t2=t2)

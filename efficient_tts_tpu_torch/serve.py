@@ -43,11 +43,20 @@ ranks, which `follow` and dispatch it too, until `release_followers`.
 Device work comes from several threads at once (the gather and fetch
 threads, and HTTP handlers streaming outside the engine lock). The engine
 lock serializes dispatches; the counters are kept under locks.
+
+While a torch profiler runs, `utils/profiling.py` records the layer's
+spans: `serve.gather` (blocked for the first request, then the wait
+window), a `serve.queue` mark per request (from `submit` to the entry of
+its micro-batch's dispatch), `engine.dispatch` (the lock wait and the
+pipeline's dispatch), `engine.fetch` (the copy's wait and trimming the
+rows) and, around it, `serve.deliver` (the fetch and resolving the
+requests' futures), the last four under the micro-batch's id.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import logging
 import queue
@@ -68,6 +77,7 @@ from efficient_tts_tpu_torch.parallel.sharding import split_batch
 from efficient_tts_tpu_torch.text import phones_to_sequence, text_to_sequence
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.masks import bucket_length
+from efficient_tts_tpu_torch.utils.profiling import mark, span
 
 log = logging.getLogger(__name__)
 
@@ -144,6 +154,7 @@ class _BatchHandle:
     n: int  # real (non-padding) utterances
     t0: float  # dispatch-entry wall time
     timings: dict  # phase attribution (lock_wait / stage1 / dispatch / t2)
+    batch: int  # the engine's id of this micro-batch, on its spans
 
 
 class TTSEngine:
@@ -214,6 +225,7 @@ class TTSEngine:
         self.stats = EngineStats()
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
+        self._batch_ids = itertools.count()
 
     # -- text front end ------------------------------------------------------
 
@@ -295,45 +307,48 @@ class TTSEngine:
     def _dispatch(self, text: np.ndarray, lengths: np.ndarray, n: int) -> _BatchHandle:
         """Dispatch a padded micro-batch whose first n rows are requests."""
         timings: dict = {}
-        t0 = time.perf_counter()
-        with self._lock:
-            t_lock = time.perf_counter()
-            if self._released:
-                raise RuntimeError("this engine released its followers and dispatches no more batches")
-            if self._leading:
-                self._broadcast(torch.tensor([*text.shape, 0], dtype=torch.int64, device=self.device))
-                for a in (text, lengths):
-                    self._broadcast(torch.as_tensor(a, dtype=torch.int64, device=self.device))
-            wav, wav_lengths = pipeline.synthesize_dispatch(
-                self.model, self.vocoder, text, lengths,
-                bucket_multiple=self.t2_multiple, max_t2=self.max_t2, compute_dtype=self.compute_dtype,
-                mrf_impl=self.mrf_impl, output="pcm16" if self.pcm16_transfer else "f32",
-                timings=timings, device=self.device, mesh=self.mesh)
-            if self.detailed_timing and self.device.type == "cuda":
-                # attribution mode: wait for the device so the fetch measures the copy alone
-                t_d = time.perf_counter()
-                torch.cuda.synchronize(self.device)
-                timings["device_block_s"] = time.perf_counter() - t_d
+        batch = next(self._batch_ids)
+        with span("engine.dispatch", batch=batch):
+            t0 = time.perf_counter()
+            with self._lock:
+                t_lock = time.perf_counter()
+                if self._released:
+                    raise RuntimeError("this engine released its followers and dispatches no more batches")
+                if self._leading:
+                    self._broadcast(torch.tensor([*text.shape, 0], dtype=torch.int64, device=self.device))
+                    for a in (text, lengths):
+                        self._broadcast(torch.as_tensor(a, dtype=torch.int64, device=self.device))
+                wav, wav_lengths = pipeline.synthesize_dispatch(
+                    self.model, self.vocoder, text, lengths,
+                    bucket_multiple=self.t2_multiple, max_t2=self.max_t2, compute_dtype=self.compute_dtype,
+                    mrf_impl=self.mrf_impl, output="pcm16" if self.pcm16_transfer else "f32",
+                    timings=timings, device=self.device, mesh=self.mesh)
+                if self.detailed_timing and self.device.type == "cuda":
+                    # attribution mode: wait for the device so the fetch measures the copy alone
+                    t_d = time.perf_counter()
+                    torch.cuda.synchronize(self.device)
+                    timings["device_block_s"] = time.perf_counter() - t_d
         timings["lock_wait_s"] = t_lock - t0
-        return _BatchHandle(wav=wav, wav_lengths=wav_lengths, n=n, t0=t0, timings=timings)
+        return _BatchHandle(wav=wav, wav_lengths=wav_lengths, n=n, t0=t0, timings=timings, batch=batch)
 
     def _fetch_batch(self, handle: _BatchHandle) -> list:
         """Fetch a dispatched micro-batch's waveforms (no engine lock). Each
         row is copied out of the batch's pinned buffer, which is released
         here: a served waveform does not keep the whole batch alive."""
-        t_f = time.perf_counter()
-        wav = pipeline.fetch(handle.wav)
-        fetch_s = time.perf_counter() - t_f
-        wavs = []
-        for i in range(handle.n):
-            w = wav[i, : int(handle.wav_lengths[i])]
-            if w.dtype == np.int16:
-                # exactly the device's quantization: re-encoding to WAV
-                # (round) gives the same PCM bytes
-                w = w.astype(np.float32) / 32767.0
-            else:
-                w = np.array(w)
-            wavs.append(w)
+        with span("engine.fetch", batch=handle.batch):
+            t_f = time.perf_counter()
+            wav = pipeline.fetch(handle.wav)
+            fetch_s = time.perf_counter() - t_f
+            wavs = []
+            for i in range(handle.n):
+                w = wav[i, : int(handle.wav_lengths[i])]
+                if w.dtype == np.int16:
+                    # exactly the device's quantization: re-encoding to WAV
+                    # (round) gives the same PCM bytes
+                    w = w.astype(np.float32) / 32767.0
+                else:
+                    w = np.array(w)
+                wavs.append(w)
         handle.wav = None
         t = handle.timings
         sr = self.voc_cfg.sampling_rate
@@ -531,6 +546,7 @@ class DynamicBatcher:
         # gather thread: both counters change under this lock
         self._shed_lock = threading.Lock()
         self._q: queue.Queue = queue.Queue(maxsize=max_queue or 0)
+        self._request_ids = itertools.count()  # on the requests' `serve.queue` spans
         # dispatch -> fetch pipeline: the gather thread dispatches batches and
         # hands them to a fetch thread, so batch k's copy to the host
         # overlaps batch k+1's dispatch and device time; pipeline_depth bounds
@@ -557,7 +573,7 @@ class DynamicBatcher:
 
     def submit(self, text: str) -> Future:
         fut: Future = Future()
-        item = (text, fut, time.perf_counter())
+        item = (text, fut, time.perf_counter(), next(self._request_ids))
         if self.max_queue:
             try:
                 self._q.put_nowait(item)
@@ -592,25 +608,26 @@ class DynamicBatcher:
             self._fetch_thread.join(timeout=5)
 
     def _gather(self):
-        first = self._q.get()
-        if first is self._STOP:
-            return None
-        items = [first]
-        limit = self.max_batch * (self.sort_ahead if self._pipelined else 1)
-        deadline = time.perf_counter() + self.max_wait
-        while len(items) < limit:
-            timeout = deadline - time.perf_counter()
-            if timeout <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=timeout)
-            except queue.Empty:
-                break
-            if nxt is self._STOP:
-                self._post_stop()  # again, for the outer loop
-                break
-            items.append(nxt)
-        return items
+        with span("serve.gather"):
+            first = self._q.get()
+            if first is self._STOP:
+                return None
+            items = [first]
+            limit = self.max_batch * (self.sort_ahead if self._pipelined else 1)
+            deadline = time.perf_counter() + self.max_wait
+            while len(items) < limit:
+                timeout = deadline - time.perf_counter()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is self._STOP:
+                    self._post_stop()  # again, for the outer loop
+                    break
+                items.append(nxt)
+            return items
 
     def _length_groups(self, items: list, ratio: float = 0.7) -> list:
         """Split a chunk sorted by descending length into groups whose padded
@@ -659,7 +676,7 @@ class DynamicBatcher:
             if self.deadline is not None:
                 now = time.perf_counter()
                 fresh = []
-                for text, fut, ts in items:
+                for text, fut, ts, request in items:
                     waited = now - ts
                     if waited > self.deadline:
                         with self._shed_lock:
@@ -667,15 +684,15 @@ class DynamicBatcher:
                         fut.set_exception(DeadlineExceededError(
                             f"queue wait {waited * 1e3:.0f} ms exceeded deadline {self.deadline * 1e3:.0f} ms"))
                     else:
-                        fresh.append((text, fut, ts))
+                        fresh.append((text, fut, ts, request))
                 items = fresh
                 if not items:
                     continue
             # encode each request alone, so a bad text fails only its own future
             good: list = []
-            for text, fut, _ts in items:
+            for text, fut, ts, request in items:
                 try:
-                    good.append((self.engine.encode(text), fut))
+                    good.append((self.engine.encode(text), fut, ts, request))
                 except Exception as e:  # noqa: BLE001
                     fut.set_exception(e)
             if not good:
@@ -688,18 +705,20 @@ class DynamicBatcher:
                 good.sort(key=lambda it: len(it[0]), reverse=True)
                 for lo in range(0, len(good), self.max_batch):
                     for group in self._length_groups(good[lo: lo + self.max_batch]):
-                        futs = [f for _, f in group]
+                        futs = [f for _, f, _, _ in group]
                         try:
-                            handle = self.engine._dispatch_batch([s for s, _ in group])
+                            handle = self.engine._dispatch_batch([s for s, _, _, _ in group])
                         except Exception as e:  # noqa: BLE001
                             for f in futs:
                                 f.set_exception(e)
                             continue
+                        for _, _, ts, request in group:  # submit -> the micro-batch's dispatch
+                            mark("serve.queue", ts * 1e9, handle.t0 * 1e9, batch=handle.batch, request=request)
                         self._fetch_q.put((handle, futs))
                 continue
-            futs = [f for _, f in good]
+            futs = [f for _, f, _, _ in good]
             try:
-                wavs = self.engine.synthesize_ids([s for s, _ in good])
+                wavs = self.engine.synthesize_ids([s for s, _, _, _ in good])
             except Exception as e:  # noqa: BLE001 - each request gets the error
                 for f in futs:
                     f.set_exception(e)
@@ -713,14 +732,15 @@ class DynamicBatcher:
             if item is self._STOP:
                 return
             handle, futs = item
-            try:
-                wavs = self.engine._fetch_batch(handle)
-            except Exception as e:  # noqa: BLE001
-                for f in futs:
-                    f.set_exception(e)
-                continue
-            for f, w in zip(futs, wavs):
-                f.set_result(w)
+            with span("serve.deliver", batch=handle.batch):
+                try:
+                    wavs = self.engine._fetch_batch(handle)
+                except Exception as e:  # noqa: BLE001
+                    for f in futs:
+                        f.set_exception(e)
+                    continue
+                for f, w in zip(futs, wavs):
+                    f.set_result(w)
 
 
 def make_http_server(engine, host: str = "0.0.0.0", port: int = 8080, max_wait_ms: float = 10.0,

@@ -7,7 +7,10 @@ gives for `cfg`, its gradients, and one optimizer update, under
 in f32). Dropout is on when `cfg.dropout_rate > 0`, driven by the CPU
 generator `gen`. The metrics are device scalars: loss, mel_loss,
 duration_loss and grad_norm, the global norm of the unclipped gradients.
-The state is updated in place (`train/state.py`).
+The state is updated in place (`train/state.py`). While a torch profiler
+runs, the spans `train.forward` (model and losses), `train.backward` and
+`train.optimizer` (global norm, clip, update, with its device time) mark
+a step's parts (`utils/profiling.py`).
 
 `accum_steps > 1` splits the batch into micro-batches, run one after the
 other with one resident micro-batch of activations at a time. Before its
@@ -64,6 +67,7 @@ from efficient_tts_tpu_torch.train.optim import global_norm
 from efficient_tts_tpu_torch.train.state import apply_updates, create_state, named_params
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.precision import full_f32
+from efficient_tts_tpu_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss", "mel_loss", "duration_loss")
 BATCH_DTYPES = {"text": torch.long, "text_lengths": torch.long, "mel": torch.float32, "mel_lengths": torch.long}
@@ -134,12 +138,14 @@ def make_train_step(cfg, tx, mesh=None, sequence_parallel: bool = False, accum_s
         kw = {}
         if sp is not None:
             mel, kw = mel[:, sp.frames(mel.shape[1])], {"sp": sp}
-        out = model(batch["text"], batch["text_lengths"], mel, batch["mel_lengths"], gen=gen,
-                    deterministic=deterministic, **kw)
-        mel, dur = w_mel * out["mel_loss"], w_dur * out["duration_loss"]
-        loss = mel + dur
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
+        with span("train.forward"):
+            out = model(batch["text"], batch["text_lengths"], mel, batch["mel_lengths"], gen=gen,
+                        deterministic=deterministic, **kw)
+            mel, dur = w_mel * out["mel_loss"], w_dur * out["duration_loss"]
+            loss = mel + dur
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
         return grads, {"loss": loss.detach(), "mel_loss": mel.detach(), "duration_loss": dur.detach()}
 
     def train_step(state, batch, gen=None):
@@ -157,13 +163,14 @@ def make_train_step(cfg, tx, mesh=None, sequence_parallel: bool = False, accum_s
                 grads, metrics = _accumulate(model, params, batch, gen)
             if reduce_group is not None:
                 grads, metrics = all_reduce_tensors(grads, reduce_group), all_reduce_tensors(metrics, reduce_group)
-            sharded = sharded_names(model)
-            if sharded:
-                grads = agree_replicated(grads, sharded, mesh)
-                metrics["grad_norm"] = sharded_grad_norm(grads, sharded, mesh.model_group)
-            else:
-                metrics["grad_norm"] = global_norm(list(grads.values()))
-            apply_updates(state, grads, tx, metrics["grad_norm"])
+            with span("train.optimizer", device=True):
+                sharded = sharded_names(model)
+                if sharded:
+                    grads = agree_replicated(grads, sharded, mesh)
+                    metrics["grad_norm"] = sharded_grad_norm(grads, sharded, mesh.model_group)
+                else:
+                    metrics["grad_norm"] = global_norm(list(grads.values()))
+                apply_updates(state, grads, tx, metrics["grad_norm"])
         return state, metrics
 
     def _accumulate(model, params, batch, gen):
