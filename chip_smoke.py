@@ -761,6 +761,30 @@ def keyed(launches):
     return {"/".join(map(str, k)) if isinstance(k, tuple) else k: n for k, n in launches.items()}
 
 
+ADAM_PATHS = {}  # K6's launches by training path, for its row of the kernels line
+
+
+def k6(steps, norm=True):
+    """K6's launches in `steps` train steps of a model under 256 leaves: the
+    update's one and, where the step computes the norm, the norm's two."""
+    return {"update": steps, **({"norm": 2 * steps} if norm else {})} if steps else {}
+
+
+def adam_launches(path, want):
+    """K6's launches (`ops/fused_adam.py`) since its last reset, logged with
+    the leaves it copied and kept under `path`; they must equal `want`
+    (launches counted 0 are left out: none on the CPU or in the GAN step;
+    under another optimizer the acoustic step's norm alone)."""
+    from efficient_tts_tpu_torch.ops import fused_adam
+
+    got, want = dict(fused_adam.launches), {k: n for k, n in want.items() if n}
+    ADAM_PATHS[path] = got
+    log({"phase": "fused_adam", "path": path, "launches": got, "expected": want,
+         "copied_leaves": dict(fused_adam.copied_leaves)})
+    if got != want:
+        raise AssertionError(f"{path}: the fused optimizer launched {got}, expected {want}")
+
+
 def wall_ms(torch, fn, n=5):
     """Median host time of `fn` (which ends in a host copy or a
     synchronisation) in ms, after one warmup call."""
@@ -1163,7 +1187,7 @@ def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda")
     from efficient_tts_tpu_torch.data.collate import collate_text_mel
     from efficient_tts_tpu_torch.data.dataset import TextMelDataset, load_filepaths_and_text
     from efficient_tts_tpu_torch.ops import flash_attention as fa
-    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.ops import fused_adam, mrf
     from efficient_tts_tpu_torch.text import text_to_sequence
     from efficient_tts_tpu_torch.train.efts_train_step import batch_to_device, make_train_step
     from efficient_tts_tpu_torch.train.optim import optimizer_from_dict
@@ -1229,9 +1253,12 @@ def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda")
                     "eval_interval_steps=6", "--set", "log_interval_steps=3"]
         mrf.reset_launches()
         fa.reset_launches()
+        fused_adam.reset_launches()
+        on_card = dev.type == "cuda"
         t0 = time.perf_counter()
         trainer = train.main(cnn_args + ["--set", "train_max_steps=12"])
         torch.cuda.synchronize()
+        adam_launches("train_cli_cnn", k6(12 if on_card else 0))
         cli_s = time.perf_counter() - t0
         losses = [m["loss"] for m in trainer.metrics_log]
         saved = sorted(n for n in os.listdir(cnn_out) if n.startswith("checkpoint-"))
@@ -1251,8 +1278,10 @@ def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda")
                                  f"evals {trainer.eval_log}, checkpoints {saved}")
         split = epoch_split(trainer.step_times)
         del trainer
+        fused_adam.reset_launches()
         resumed = train.main(cnn_args + ["--resume", os.path.join(cnn_out, "checkpoint-12steps"),
                                          "--set", "train_max_steps=14"])
+        adam_launches("train_cli_cnn_resumed", k6(2 if on_card else 0))
         log({"phase": "main_path", "what": "bin.train --resume, EFTS-CNN", "steps": resumed.state["step"],
              "trained_steps": [r["step"] for r in resumed.step_times],
              "losses": [m["loss"] for m in resumed.metrics_log]})
@@ -1300,8 +1329,10 @@ def corpus_training_phase(torch, voc, stages, new_launches, work, device="cuda")
                    "--set", "save_interval_steps=4", "--set", "log_interval_steps=1"]
         mrf.reset_launches()
         fa.reset_launches()
+        fused_adam.reset_launches()
         tr = train.main(tr_args)
         torch.cuda.synchronize()
+        adam_launches("train_cli_transformer", k6(4 if on_card else 0))
         tr_flash = dict(fa.launches)
         per_kernel = {k: sum(n for (kern, *_), n in tr_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
         tr_losses = [m["loss"] for m in tr.metrics_log]
@@ -1865,6 +1896,7 @@ def registry_optimizer_phase(torch, trained, dev):
     from efficient_tts_tpu_torch import compat, init
     from efficient_tts_tpu_torch.bin import train
     from efficient_tts_tpu_torch.ops import flash_attention as fa
+    from efficient_tts_tpu_torch.ops import fused_adam
     from efficient_tts_tpu_torch.train.efts_train_step import make_train_step
     from efficient_tts_tpu_torch.train.optim import optimizer_from_dict
     from efficient_tts_tpu_torch.train.state import create_state, named_params
@@ -1878,6 +1910,7 @@ def registry_optimizer_phase(torch, trained, dev):
     batch = train_batch(np.random.default_rng(5), cfg.num_symbols, cfg.odim)
     batch = {k: v[:2] for k, v in batch.items()}
     runs = {}
+    fused_adam.reset_launches()
     for key, dname in (("card", dev), ("cpu", torch.device("cpu"))):
         model = compat.efts_transformer_from_jax(params, cfg, device=dname, trainable=True)
         tx = optimizer_from_dict(config)
@@ -1887,6 +1920,8 @@ def registry_optimizer_phase(torch, trained, dev):
         runs[key] = (before, {n: p.detach().clone() for n, p in named_params(model).items()}, state["opt_state"])
         runs[key + "_loss"] = float(metrics["loss"])
         del model, state
+    # the train step's norm is K6's; AdamW's update is a Chain of per-tensor parts
+    adam_launches("registry_optimizer_card_vs_cpu", {"norm": 2 if dev.type == "cuda" else 0})
     # the model in the large: the loss and the whole gradient (from the first
     # moment); the attention's alignment path (text key, mel prenet: sigma
     # 0.01) moves several percent leafwise at B=2 under the flash kernels' TF32
@@ -1926,6 +1961,7 @@ def registry_optimizer_phase(torch, trained, dev):
     args = ["--config", yaml_path, "--train_fid_scp", corpus["train"], "--outdir", out,
             *[a for o in sets for a in ("--set", o)], *(["--use_cpu"] if dev.type == "cpu" else [])]
     fa.reset_launches()
+    fused_adam.reset_launches()
     first = train.main([*args, "--set", "train_max_steps=2", "--set", "save_interval_steps=2"])
     torch.cuda.synchronize()
     first_losses, first_lr_state = [m["loss"] for m in first.metrics_log], first.state["opt_state"][2]["count"]
@@ -1933,6 +1969,7 @@ def registry_optimizer_phase(torch, trained, dev):
     resumed = train.main([*args, "--set", "train_max_steps=3", "--set", "save_interval_steps=100"])
     torch.cuda.synchronize()
     reg_flash = dict(fa.launches)
+    adam_launches("train_cli_transformer_registry_optimizer", {"norm": 6 if dev.type == "cuda" else 0})
     per_kernel = {k: sum(n for (kern, *_), n in reg_flash.items() if kern == k) for k in ("fwd", "dkv", "dq")}
     calls = cfg.n_text_encoder_layer + cfg.n_mel_encoder_layer + cfg.n_decoder_layer
     log({"phase": "main_path", "what": "bin.train, EFTS-Transformer, registry optimizer",
@@ -1955,6 +1992,7 @@ def duration_model_phase(torch, dev):
     `inference`'s rounded durations, one step timed and profiled."""
     from efficient_tts_tpu_torch.bench import time_ms
     from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
+    from efficient_tts_tpu_torch.ops import fused_adam
     from efficient_tts_tpu_torch.train.duration_train_step import init_duration_state, make_duration_train_step
     from efficient_tts_tpu_torch.train.optim import AdamWarmup
 
@@ -1984,9 +2022,11 @@ def duration_model_phase(torch, dev):
     step = make_duration_train_step(cfg, tx, device=dev)
     dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     fit = []
+    fused_adam.reset_launches()
     for _ in range(DUR_STEPS):
         state, m = step(state, dev_batch)
         fit.append(m["loss"])
+    adam_launches("duration_train_step", k6(DUR_STEPS if dev.type == "cuda" else 0))
     fit = [float(x) for x in fit]
     pred = state["params"].inference(dev_batch["ppg"], dev_batch["spkids"]).cpu()
     t_step = time_ms(lambda: step(state, dev_batch), iters=20)
@@ -2735,6 +2775,14 @@ def mrt_flash_per_step(model, mode, mesh) -> dict:
             for shape, n in (((T1_TR, T1_TR), 4), ((tq + -tq % 64, t2), 6))}
 
 
+def mrt_adam_per_step(model, mode, mesh) -> dict:
+    """K6's launches a step on a rank of `mesh` [data, model]: the update,
+    and the norm's two where the rank holds whole leaves (with the leaves
+    split over the model axis, tp's norm is `sharded_grad_norm`'s); none for
+    the GAN, whose step calls its optimizers' `update` itself."""
+    return {} if model == "hifigan_v1" else k6(1, norm=not ("tp" in mode and mesh[1] > 1))
+
+
 def mrt_compare_tf32(got, ref, p0) -> tuple[dict, list]:
     """The EFTS-Transformer's step over ranks against one card's. Its K4
     calls take TF32 operands, and their inputs differ from one card's in the
@@ -2817,7 +2865,7 @@ def train_rank_main(opts) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from efficient_tts_tpu_torch import _build
     from efficient_tts_tpu_torch.ops import flash_attention as fa
-    from efficient_tts_tpu_torch.ops import mrf
+    from efficient_tts_tpu_torch.ops import fused_adam, mrf
     from efficient_tts_tpu_torch.parallel import initialize_multihost, make_mesh, rank_device, split_batch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2826,7 +2874,7 @@ def train_rank_main(opts) -> int:
         # a step on (1, 1) is held to one card's bit for bit: no convolution
         # algorithm that sums in a run-dependent order
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    for name in ("mrf_stage", "flash_attention"):
+    for name in ("mrf_stage", "flash_attention", "fused_adam"):
         if not _build._target(_build.SRC_DIR / f"{name}.cu").exists():
             raise AssertionError(f"csrc/{name}.cu is not built: run the ranks from chip_smoke.py's phase 4r")
     dev = rank_device("cuda", index=0)
@@ -2840,6 +2888,7 @@ def train_rank_main(opts) -> int:
             paths = json.load(f)
         dist_args = ["--coordinator", opts.init, "--num_processes", str(opts.world), "--process_id", str(opts.rank),
                      "--dist_backend", "gloo", "--device_index", "0"]
+        fused_adam.reset_launches()
         t0 = time.perf_counter()
         t = train.main(["--config", paths["cnn"], "--train_fid_scp", paths["train"], "--dev_fid_scp", paths["dev"],
                         "--outdir", paths["train_out"], *dist_args])
@@ -2848,7 +2897,7 @@ def train_rank_main(opts) -> int:
                       "mesh": [t.mesh.shape["data"], t.mesh.shape["model"]], "step": t.state["step"],
                       "losses": [e["loss"] for e in t.metrics_log], "evals": len(t.eval_log),
                       "param_sum": float(sum(float(p.double().sum()) for p in t.state["params"].parameters())),
-                      "seconds": time.perf_counter() - t0})
+                      "adam_launches": dict(fused_adam.launches), "seconds": time.perf_counter() - t0})
         mrf.reset_launches()
         t0 = time.perf_counter()
         v = train_vocoder.main(["--wav_scp", paths["wav_scp"], "--dev_wav_scp", paths["wav_scp"], "--outdir",
@@ -2882,6 +2931,7 @@ def train_rank_main(opts) -> int:
                 del state, step
                 for mode in MRT_MODES[name]:
                     fa.reset_launches()
+                    fused_adam.reset_launches()
                     state, step = mrt_setup(name, dev, mesh, "sp" in mode)
                     state, m = step(state, batch)
                     got = mrt_params(state, mesh)
@@ -2889,7 +2939,8 @@ def train_rank_main(opts) -> int:
                              and all(torch.equal(got[s][i][k], ref[s][i][k]) for s in ref for i in (0, 1)
                                      for k in ref[s][i]))
                     report(what="train_step(mesh=)", model=name, mode=mode, mesh=[1, 1], B=b, bit_equal=equal,
-                           flash_launches=[[*k, n] for k, n in fa.launches.items()])
+                           flash_launches=[[*k, n] for k, n in fa.launches.items()],
+                           adam_launches=dict(fused_adam.launches))
                     if not equal:
                         failed.append(f"{name} {mode} on (1, 1) differs from one card's step")
                     del state, step
@@ -2917,6 +2968,7 @@ def train_rank_main(opts) -> int:
                     state, step = mrt_setup(name, dev, mesh, "sp" in mode)
                     blk = {k: split_batch(v, mesh) for k, v in batch.items()}
                     fa.reset_launches()
+                    fused_adam.reset_launches()
                     torch.cuda.reset_peak_memory_stats(dev)
                     t0 = time.perf_counter()
                     state, m = step(state, blk)
@@ -2928,7 +2980,8 @@ def train_rank_main(opts) -> int:
                     metrics = {k: float(v) for k, v in m.items()}
                     line = dict(what="train_step(mesh=)", model=name, mode=mode, mesh=list(MRT_MESHES[mode]), B=b,
                                 metrics=metrics, step_s=secs, peak_mb=peak, params_sha256=mrt_digest(got),
-                                flash_launches=[[*k, n] for k, n in flash.items()])
+                                flash_launches=[[*k, n] for k, n in flash.items()],
+                                adam_launches=dict(fused_adam.launches))
                     if rank == 0:
                         tf32 = name.startswith("efts_transformer")
                         worst, fails = (mrt_compare_tf32(got, ref, p0) if tf32
@@ -2963,6 +3016,7 @@ def multi_rank_training_phase(torch, new_launches, work):
     launches {path: {(kernel, Tq, Tk, segmented): n}}."""
     from efficient_tts_tpu_torch.bench.corpus import make_corpus
     from efficient_tts_tpu_torch.bin import train, train_vocoder
+    from efficient_tts_tpu_torch.ops import fused_adam
     from efficient_tts_tpu_torch.utils.config import load_config
 
     t_phase = time.perf_counter()
@@ -2988,6 +3042,12 @@ def multi_rank_training_phase(torch, new_launches, work):
                     if got != want:
                         raise AssertionError(f"{line['model']} {line['mode']} on rank {r} of {line['world']}: flash "
                                              f"launches {got}, expected {want}")
+                    want_adam = mrt_adam_per_step(line["model"], line["mode"], line["mesh"])
+                    ADAM_PATHS[f"multi_rank_training_{task}_{line['model']}_{line['mode']}_rank{r}"] = \
+                        line["adam_launches"]
+                    if line["adam_launches"] != want_adam:
+                        raise AssertionError(f"{line['model']} {line['mode']} on rank {r} of {line['world']}: fused "
+                                             f"optimizer launches {line['adam_launches']}, expected {want_adam}")
                     if line["world"] > 1:
                         tag = f"multi_rank_training_{line['backend']}{line['world']}_{line['model']}_{line['mode']}"
                         flash[f"{tag}_rank{r}"] = {tuple(k): n for *k, n in line["flash_launches"]}
@@ -3025,15 +3085,20 @@ def multi_rank_training_phase(torch, new_launches, work):
             log({"phase": "multi_rank_training", **line})
     (t0, v0), (t1, v1) = cli
     written = sorted(os.listdir(paths["train_out"])), sorted(os.listdir(paths["voc_out"]))
+    for r, (t_line, _) in enumerate(cli):
+        ADAM_PATHS[f"train_cli_cnn_two_ranks_rank{r}"] = t_line["adam_launches"]
     if (t0["param_sum"] != t1["param_sum"] or v0["param_sum"] != v1["param_sum"] or t0["losses"] != t1["losses"]
+            or t0["adam_launches"] != k6(2) or t1["adam_launches"] != k6(2)
             or v0["data_path"] != "host" or v0["evals"] != 1 or v1["evals"] != 0
             or not all(math.isfinite(x) for x in t0["losses"] + v0["g_losses"])):
         raise AssertionError(f"the CLIs over two ranks: {cli}")
     new_launches["train_vocoder_two_ranks_eval", "f32"] = {(d, c): n for d, c, n in v0["mrf_launches"]}
     # rank 0's checkpoints, one-card files, resumed on this card for one more step
+    fused_adam.reset_launches()
     resumed = train.main(["--config", paths["cnn"], "--train_fid_scp", paths["train"], "--outdir",
                           os.path.join(work, "resumed_train"), "--resume",
                           os.path.join(paths["train_out"], "checkpoint-2steps"), "--set", "train_max_steps=3"])
+    adam_launches("train_cli_cnn_resumed_from_ranks", k6(1))
     voc = train_vocoder.main(["--wav_scp", paths["wav_scp"], "--outdir", os.path.join(work, "resumed_voc"),
                               "--resume", os.path.join(paths["voc_out"], "checkpoint-2steps"), "--batch_size", "4",
                               "--train_max_steps", "3", "--device_corpus", "off"])
@@ -3078,13 +3143,14 @@ def main(argv=None) -> int:
     from efficient_tts_tpu_torch import _build, compat, init, pipeline
     from efficient_tts_tpu_torch import bench
     from efficient_tts_tpu_torch.bench import card_line, time_ms
+    from efficient_tts_tpu_torch.bench import fused_adam as bench_adam
     from efficient_tts_tpu_torch.bench import mrf_fused as bench_mrf
     from efficient_tts_tpu_torch.bench import probe_int8 as bench_probe
     from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
     from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
     from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig
     from efficient_tts_tpu_torch.ops import flash_attention as fa
-    from efficient_tts_tpu_torch.ops import mrf, mrf_int8
+    from efficient_tts_tpu_torch.ops import fused_adam, mrf, mrf_int8
     from efficient_tts_tpu_torch.ops import probe_matmul as pm
     from efficient_tts_tpu_torch.utils import flops as flop_counts
 
@@ -3358,18 +3424,21 @@ def main(argv=None) -> int:
             grads = torch.autograd.grad(out["loss"], list(params.values()))
         return dict(zip(params, grads)), float(out["loss"].detach())
 
-    def run_steps(model, cfg, n, gen=None):
+    def run_steps(model, cfg, n, path, gen=None):
         """n steps of `make_train_step` from a fresh optimizer state; the
-        metrics of each step and the launch counts after each."""
+        metrics of each step and the flash launch counts after each. K6's
+        launches are checked under `path`."""
         tx = optimizer_from_dict(YAML_OPTIMIZER)
         state = create_state(model, tx)
         step = make_train_step(cfg, tx)
         metrics, counts = [], []
+        fused_adam.reset_launches()
         for _ in range(n):
             state, m = step(state, batch, gen)
             metrics.append(m)
             counts.append(dict(fa.launches))
         torch.cuda.synchronize()
+        adam_launches(path, k6(n))
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         if not all(math.isfinite(v) for m in metrics for v in m.values()):
             raise AssertionError(f"training gave non-finite metrics: {metrics}")
@@ -3394,7 +3463,7 @@ def main(argv=None) -> int:
 
     mrf.reset_launches()
     fa.reset_launches()
-    state_k, step_k, metrics_k, counts = run_steps(model_k, train_cfg, N_TRAIN_STEPS)
+    state_k, step_k, metrics_k, counts = run_steps(model_k, train_cfg, N_TRAIN_STEPS, "efts_transformer_training")
     train_launches = dict(fa.launches)
     n_t1, n_t2 = train_cfg.n_text_encoder_layer, train_cfg.n_mel_encoder_layer + train_cfg.n_decoder_layer
     per_step = {(kern, t, t, True): n for kern in ("fwd", "dkv", "dq") for t, n in ((T1_TR, n_t1), (TRAIN_T2, n_t2))}
@@ -3410,7 +3479,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"training launched the MRF kernel: {mrf.launches}")
 
     fa.reset_launches()
-    state_p, step_p, metrics_p, _ = run_steps(model_p, plain_cfg, N_TRAIN_STEPS)
+    state_p, step_p, metrics_p, _ = run_steps(model_p, plain_cfg, N_TRAIN_STEPS,
+                                              "efts_transformer_training_plain_attention")
     if fa.launches:
         raise AssertionError(f"the plain attention path launched {fa.launches}")
     diffs = [{"loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
@@ -3427,7 +3497,8 @@ def main(argv=None) -> int:
     drop_cfg = dataclasses.replace(train_cfg, dropout_rate=0.1)
     fa.reset_launches()
     drop_gen = torch.Generator().manual_seed(0)
-    state_d, step_d, metrics_d, _ = run_steps(trainable(drop_cfg), drop_cfg, 3, drop_gen)
+    state_d, step_d, metrics_d, _ = run_steps(trainable(drop_cfg), drop_cfg, 3, "efts_transformer_training_dropout",
+                                              drop_gen)
     log({"phase": "main_path", "model": "efts_transformer_training_dropout", "steps": 3, "metrics": metrics_d,
          "flash_launches": {"/".join(map(str, k)): n for k, n in fa.launches.items()}})
     if fa.launches:
@@ -3454,6 +3525,17 @@ def main(argv=None) -> int:
     log({"phase": "main_path", "what": "bench.probe_int8", **probe, "launches": probe_launches})
     if probe_launches != {"bf16": bench_calls, "int8": bench_calls}:
         raise AssertionError(f"bench.probe_int8 launched {probe_launches}")
+    # K6 on the recipes' real leaves: the bench's check (its first steps, the
+    # fused path against AdamWarmup.update plus add_ from one state, bit for
+    # bit), then its times
+    adam = bench_adam.main([])
+    torch.cuda.synchronize()
+    log({"phase": "main_path", "what": "bench.fused_adam", **adam})
+    for m in bench_adam.CONFIGS:
+        chk = adam[m]["check"]
+        if (not chk["bit_equal"] or chk["norm_rel_err"] > bench_adam.NORM_TOL or chk["copied_leaves"]
+                or chk["launches"] != k6(chk["steps"])):
+            raise AssertionError(f"bench.fused_adam's check of the {m} leaves: {chk}")
 
     # 4g. narrow generators: EFTS-CNN into the V2-width and the narrow
     # vocoder, bf16 and f32; stages whose width is not a multiple of 32 run
@@ -3993,6 +4075,31 @@ def main(argv=None) -> int:
                  "peak_used": "TF32 495 TFLOP/s, HBM3 3.35 TB/s",
                  **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by")}})
         del q, k, v, do, seg, o, m, l, mask, qs, ks_, vs, lib_out, do_rows, per_launch
+
+    # K6 at the recipes' leaves: bench.fused_adam's times from 4f (kernel
+    # time from the profiler's trace of one step, each version's kernels
+    # summed), the bytes bound 40 B a parameter
+    for m, model_name in (("transformer", "efts_transformer"), ("cnn", "efts_cnn")):
+        a = adam[m]
+        by_path = {p: n for p, n in ADAM_PATHS.items() if n and m in p}  # the DurationModel's in its own line
+        row = {
+            "name": f"fused_adam_{model_name}", "route": "cuda",
+            "source": "efficient_tts_tpu_torch/csrc/fused_adam.cu",
+            "replaces": "efficient_tts_tpu/train/optim.py:23",
+            "pallas_call": "none: optax's chain, fused by XLA",
+            "leaves": a["leaves"], "params": a["params"], "launches_per_step": a["fused"]["launches"],
+            "launches": sum(sum(n.values()) for n in by_path.values()), "launches_by_path": by_path,
+            "tolerance": "bit-equal, the norm within 2e-6", "check": a["check"],
+            "ms": a["fused"]["kernel_ms"], "plain_ms": a["plain"]["kernel_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": "HBM, 40 B a parameter at 3.35 TB/s", "library_ms": a["library"]["kernel_ms"],
+            "library_call": "torch._foreach_* in optax's order (a yardstick the port never calls)",
+            "plain_launches_per_step": a["plain"]["launches"], "library_launches_per_step": a["library"]["launches"],
+            "call_ms": {v: a[v]["ms"]["median"] for v in ("fused", "plain", "library")}, "timed_by": "device",
+        }
+        kernels.append(row)
+        log({"phase": "timing", "what": row["name"], "bound_share": row["bound_ms"] / row["ms"],
+             **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms",
+                                       "launches_per_step", "plain_launches_per_step")}})
 
     # 5b. an earlier tree's kernels in turns with this tree's
     if opts.baseline:

@@ -3,6 +3,7 @@
     python -m efficient_tts_tpu_torch.bench.mrf_fused      # scripts/bench_mrf_fused.py
     python -m efficient_tts_tpu_torch.bench.probe_int8     # scripts/probe_int8_pallas.py
     python -m efficient_tts_tpu_torch.bench.serving_load   # scripts/bench_serving_load.py
+    python -m efficient_tts_tpu_torch.bench.fused_adam     # the fused optimizer against the per-tensor path
 
 Each runs on the NVIDIA card and raises without one, and prints under the
 card's name and power limit. The kernel benches' times are medians of

@@ -10,7 +10,9 @@ duration_loss and grad_norm, the global norm of the unclipped gradients.
 The state is updated in place (`train/state.py`). While a torch profiler
 runs, the spans `train.forward` (model and losses), `train.backward` and
 `train.optimizer` (global norm, clip, update, with its device time) mark
-a step's parts (`utils/profiling.py`).
+a step's parts (`utils/profiling.py`). On the card the norm and the update
+are the fused kernels of `ops/fused_adam.py` (`train/optim.py:grad_norm`,
+`AdamWarmup.update_in_place`).
 
 `accum_steps > 1` splits the batch into micro-batches, run one after the
 other with one resident micro-batch of activations at a time. Before its
@@ -63,7 +65,7 @@ from efficient_tts_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from efficient_tts_tpu_torch.parallel.sequence_parallel import SeqShard
 from efficient_tts_tpu_torch.parallel.sharding import (agree_replicated, shard_module, sharded_grad_norm, sharded_names,
                                                        split_batch)
-from efficient_tts_tpu_torch.train.optim import global_norm
+from efficient_tts_tpu_torch.train.optim import grad_norm
 from efficient_tts_tpu_torch.train.state import apply_updates, create_state, named_params
 from efficient_tts_tpu_torch.utils.device import check_module_device, resolve_device
 from efficient_tts_tpu_torch.utils.precision import full_f32
@@ -169,7 +171,7 @@ def make_train_step(cfg, tx, mesh=None, sequence_parallel: bool = False, accum_s
                     grads = agree_replicated(grads, sharded, mesh)
                     metrics["grad_norm"] = sharded_grad_norm(grads, sharded, mesh.model_group)
                 else:
-                    metrics["grad_norm"] = global_norm(list(grads.values()))
+                    metrics["grad_norm"] = grad_norm(grads)
                 apply_updates(state, grads, tx, metrics["grad_norm"])
         return state, metrics
 

@@ -38,7 +38,13 @@ exact). An unknown name raises ValueError.
 
 The bias corrections and the learning rate are host floats computed in
 f32 as optax computes them. `update` is pure, as optax's is; the train
-step adds the updates to the parameters in place. The states are dicts
+step adds the updates to the parameters in place. `AdamWarmup` (and
+`HiFiGANAdam`) also has `update_in_place`, which the train step calls: on
+CUDA tensors it is one launch of the fused kernel of `ops/fused_adam.py`,
+which updates the parameters and moments in place, bit for bit as `update`
+plus `add_` given the same norm; on CPU tensors it is `update` plus `add_`.
+`grad_norm` is the gradients' global norm the same way: the fused kernels'
+on CUDA tensors, `global_norm` on CPU ones. The states are dicts
 (and lists) of host numbers and tensors, which `train/checkpoint.py` saves
 and restores as they are.
 """
@@ -48,6 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from efficient_tts_tpu_torch.ops import fused_adam
 from efficient_tts_tpu_torch.train.schedule import exponential_decay_per_epoch, warmup_lr
 from efficient_tts_tpu_torch.train.torch_optim import OPTIMIZER_FACTORIES, SCHEDULER_FACTORIES
 
@@ -55,6 +62,17 @@ from efficient_tts_tpu_torch.train.torch_optim import OPTIMIZER_FACTORIES, SCHED
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of every element's square (optax.global_norm)."""
     return torch.sqrt(torch.stack([torch.sum(t * t) for t in tensors]).sum())
+
+
+@torch.no_grad()
+def grad_norm(grads: dict) -> torch.Tensor:
+    """The global norm of named gradients: on CUDA tensors the fused kernels'
+    (`ops/fused_adam.py:global_norm`, within 2e-6 of `global_norm`), on CPU
+    ones `global_norm`."""
+    leaves = list(grads.values())
+    if leaves and leaves[0].is_cuda:
+        return fused_adam.global_norm(leaves)
+    return global_norm(leaves)
 
 
 class ClipByGlobalNorm:
@@ -102,10 +120,7 @@ class AdamWarmup:
         if self.weight_decay:
             g = [x + self.weight_decay * params[n] for x, n in zip(g, names)]
         count = state["count"] + 1
-        f = np.float32
-        bc1 = float(f(1.0) - _int_pow(self.b1, count))
-        bc2 = float(f(1.0) - f(self.b2) ** f(count))
-        step_size = -self.schedule(state["count"])
+        bc1, bc2, step_size = self._corrections(count)
         new = {"count": count, "mu": {}, "nu": {}}
         if self.amsgrad:
             new["nu_max"] = {}
@@ -119,6 +134,38 @@ class AdamWarmup:
             updates[n] = step_size * ((mu / bc1) / (torch.sqrt(nu_hat) + self.eps))
             new["mu"][n], new["nu"][n] = mu, nu
         return updates, new
+
+    @torch.no_grad()
+    def update_in_place(self, grads: dict, state: dict, params: dict, norm: torch.Tensor | None = None) -> dict:
+        """`update` added to `params` in place; returns the new state. On CUDA
+        tensors the fused kernel (`ops/fused_adam.py`) updates the parameters
+        and the state's moments in place, and the state keeps its layout;
+        mixed devices, dtypes other than f32 or mismatched shapes raise."""
+        first = next(iter(params.values()), None)
+        if first is None or not first.is_cuda:
+            updates, new = self.update(grads, state, params, norm=norm)
+            for n, u in updates.items():
+                params[n].add_(u)
+            return new
+        names = list(grads)
+        g = [grads[n] for n in names]
+        mu, nu, *nu_max = ([state[k][n] for n in names] for k in (("mu", "nu", "nu_max") if self.amsgrad
+                                                                  else ("mu", "nu")))
+        if self.grad_clip_norm is not None and norm is None:
+            norm = fused_adam.global_norm(g)
+        count = state["count"] + 1
+        bc1, bc2, step_size = self._corrections(count)
+        fused_adam.adam_update([params[n] for n in names], g, mu, nu, nu_max[0] if nu_max else None, norm,
+                               max_norm=self.grad_clip_norm, weight_decay=self.weight_decay, b1=self.b1, b2=self.b2,
+                               eps=self.eps, bc1=bc1, bc2=bc2, step_size=step_size)
+        return {**state, "count": count}
+
+    def _corrections(self, count: int) -> tuple[float, float, float]:
+        """(bc1, bc2, step size) of the update that brings the count to
+        `count`: host floats computed in f32 as optax computes them."""
+        f = np.float32
+        return (float(f(1.0) - _int_pow(self.b1, count)), float(f(1.0) - f(self.b2) ** f(count)),
+                -self.schedule(count - 1))
 
 
 class HiFiGANAdam(AdamWarmup):

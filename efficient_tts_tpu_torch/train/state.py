@@ -5,7 +5,9 @@ tree, named as `named_parameters` names them. `opt_state` is the
 optimizer's state for those names and `step` a host int. Unlike the JAX
 state, which is rebuilt each step, this one is updated in place: the
 parameters take their updates with `add_`, which keeps one copy of the
-weights on the card.
+weights on the card. An optimizer that has `update_in_place`
+(`train/optim.py:AdamWarmup`: the fused kernels on the card) updates the
+parameters and its moments itself.
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ def apply_updates(state: dict, grads: dict, tx, norm: torch.Tensor | None = None
     """One update of `tx`; `norm`, the gradients' global norm where the
     caller has it, goes to its clip (`train/optim.py:ClipByGlobalNorm`)."""
     params = named_params(state["params"])
-    if norm is None:
-        updates, state["opt_state"] = tx.update(grads, state["opt_state"], params)
+    if hasattr(tx, "update_in_place"):
+        state["opt_state"] = tx.update_in_place(grads, state["opt_state"], params, norm)
     else:
-        updates, state["opt_state"] = tx.update(grads, state["opt_state"], params, norm=norm)
-    for n, u in updates.items():
-        params[n].add_(u)
+        kw = {} if norm is None else {"norm": norm}
+        updates, state["opt_state"] = tx.update(grads, state["opt_state"], params, **kw)
+        for n, u in updates.items():
+            params[n].add_(u)
     state["step"] += 1
     return state
