@@ -8,7 +8,9 @@ and loads the checkpoint written by `train/checkpoint.py:save_checkpoint`
 (an EFTS-CNN trainer's checkpoint has its weight norm folded here),
 loads the vocoder (a checkpoint of `bin/train_vocoder.py`, its EMA
 generator when it has one, else its generator, weight norm folded; or a
-reference HiFi-GAN generator file; or random weights with a warning), synthesizes the filelist's texts in batches through
+reference HiFi-GAN generator file; or a BigVGAN generator file in
+NVIDIA/BigVGAN's layout, `{"generator": state_dict}` with its `config.json`
+beside it; or random weights with a warning), synthesizes the filelist's texts in batches through
 `pipeline.synthesize` in f32 and writes PCM_16 wavs. Runs on the card unless
 `--use_cpu` is given; without a card it raises. `--repeats N` runs the set N
 times (pass 0 includes the kernels' first build); `--timing_json` writes the
@@ -33,7 +35,8 @@ def get_parser():
     p.add_argument("--checkpoint", required=True, help="acoustic model checkpoint (config.yml beside it)")
     p.add_argument("--outdir", required=True)
     p.add_argument("--vocoder_checkpoint", default=None,
-                   help="a bin.train_vocoder checkpoint, or a reference HiFi-GAN generator file (torch state dict)")
+                   help="a bin.train_vocoder checkpoint, a reference HiFi-GAN generator file (torch state dict), "
+                   "or a BigVGAN generator file with its config.json beside it")
     p.add_argument("--num_utts", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--use_cpu", action="store_true", help="run on the CPU (the default is the card)")
@@ -82,9 +85,10 @@ def load_acoustic_model(checkpoint: str, device):
 
 
 def load_vocoder(path: str | None, device):
-    """The HiFi-GAN generator on `device` with the config.yml beside `path`
-    or the V1 defaults: from a `bin/train_vocoder.py` checkpoint or a
-    reference generator file, else seeded random weights."""
+    """The vocoder on `device` with the config beside `path`
+    (`utils/config.py:vocoder_config_near_checkpoint`) or the HiFi-GAN V1
+    defaults: from a `bin/train_vocoder.py` checkpoint, a reference HiFi-GAN
+    generator file or a BigVGAN generator file, else seeded random weights."""
     from efficient_tts_tpu_torch import compat, init
     from efficient_tts_tpu_torch.utils.config import vocoder_config_near_checkpoint
 
@@ -99,8 +103,11 @@ def _load_vocoder(path: str, voc_cfg, device):
     """A vocoder trainer's checkpoint ({"gen": {"params": sd, ...}, ...[,
     "ema": sd]}): the EMA generator when present, else the generator, folded
     for inference; or a reference generator file ({"generator": sd},
-    {"model": sd} or a bare state dict, weight-normed or folded)."""
+    {"model": sd} or a bare state dict, weight-normed or folded); a BigVGAN
+    config reads the file as NVIDIA/BigVGAN's generator state dict."""
+    from efficient_tts_tpu_torch import compat
     from efficient_tts_tpu_torch.compat import torch_import
+    from efficient_tts_tpu_torch.models.bigvgan import BigVGANConfig
     from efficient_tts_tpu_torch.models.hifigan_train import HiFiGANTrainGenerator
 
     if os.path.isdir(path):
@@ -109,6 +116,9 @@ def _load_vocoder(path: str, voc_cfg, device):
             "pass a checkpoint of efficient_tts_tpu_torch.bin.train_vocoder or a reference generator file")
     if not os.path.isfile(path):
         raise ValueError(f"unsupported vocoder checkpoint: {path}")
+    if isinstance(voc_cfg, BigVGANConfig):
+        return compat.bigvgan_generator_from_state_dict(torch_import.load_reference_checkpoint(path)["model"],
+                                                        voc_cfg, device=device)
     state = torch.load(os.path.abspath(path), map_location="cpu", weights_only=False)
     if isinstance(state, dict) and isinstance(state.get("gen"), dict) and "params" in state["gen"]:
         gen = HiFiGANTrainGenerator(voc_cfg)

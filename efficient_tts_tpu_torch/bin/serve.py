@@ -41,7 +41,8 @@ TORCHRUN = "torchrun --nproc_per_node {n} -m efficient_tts_tpu_torch.bin.serve -
 def get_parser():
     p = argparse.ArgumentParser(description="EfficientTTS HTTP server on the card")
     p.add_argument("--checkpoint", default=None, help="acoustic model checkpoint (config.yml beside it)")
-    p.add_argument("--vocoder_checkpoint", default=None, help="reference HiFi-GAN generator file")
+    p.add_argument("--vocoder_checkpoint", default=None,
+                   help="reference HiFi-GAN generator file, or a BigVGAN one with its config.json beside it")
     p.add_argument("--random_init", action="store_true", help="serve random weights (smoke tests, benches)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)

@@ -121,6 +121,8 @@ def main(argv=None):
     mesh = train_mesh(world, args.batch_size)
     config = load_config(args.config) if args.config else {}
     voc_cfg = vocoder_config_from_dict(config)
+    if config.get("vocoder_name", "HiFiGAN") != "HiFiGAN":
+        raise ValueError(f"bin.train_vocoder trains HiFi-GAN generators, not vocoder_name={config['vocoder_name']!r}")
     if is_primary():
         dump_config(config, args.outdir)
     lr = float(config.get("learning_rate", 2e-4))

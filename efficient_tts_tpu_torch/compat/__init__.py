@@ -34,7 +34,9 @@ batch-norm state {scale, bias, mean, var}: `postnet_from_jax` /
 
 The reference's own PyTorch files (EFTS-CNN trainer checkpoints, HiFi-GAN
 generator files, the official recipe's `g_` / `do_` pairs) are read by
-`compat/torch_import.py` and written by `compat/torch_export.py`.
+`compat/torch_import.py` and written by `compat/torch_export.py`. The JAX
+package has no BigVGAN: its published generator state dict is read by
+`bigvgan_generator_from_state_dict`.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from efficient_tts_tpu_torch.models.bigvgan import BigVGANConfig, BigVGANGenerator
 from efficient_tts_tpu_torch.models.duration_model import DurationModel, DurationModelConfig
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer, EftsTransformerConfig
@@ -49,6 +52,7 @@ from efficient_tts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerat
 from efficient_tts_tpu_torch.models.hifigan_train import Discriminators, HiFiGANTrainGenerator
 from efficient_tts_tpu_torch.nn.layers import SNConv1d, WNConv1d, fold_weight_norm
 from efficient_tts_tpu_torch.nn.postnet import Postnet
+from efficient_tts_tpu_torch.ops.alias_free import kaiser_sinc_filter
 from efficient_tts_tpu_torch.utils.device import resolve_device
 
 
@@ -433,4 +437,41 @@ def hifigan_generator_from_jax(params: dict, cfg: HiFiGANConfig, device="cuda") 
                     ws.append(np.transpose(conv["w"], (0, 2, 1)))  # [k, out, in]
                     bs.append(conv["b"])
         stage.load(ws, np.stack(bs))
+    return model.to(dev).eval()
+
+
+def _fold_dim0(v: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """g * v / ||v||, the norm over every axis but the first (torch's
+    `weight_norm(dim=0)`: a Conv1d's output channels, a ConvTranspose1d's
+    input channels), in f64."""
+    v = np.asarray(v, np.float64)
+    norm = np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)), keepdims=True))
+    return (np.asarray(g, np.float64).reshape(norm.shape) * v / norm).astype(np.float32)
+
+
+@torch.no_grad()
+def bigvgan_generator_from_state_dict(sd: dict, cfg: BigVGANConfig, device="cuda") -> BigVGANGenerator:
+    """NVIDIA/BigVGAN's generator state dict (the "generator" entry of its
+    checkpoints; tensors or numpy arrays) -> the port's BigVGANGenerator on
+    `device` ("cuda" unless the caller passes "cpu"). A weight-normed layer's
+    `.weight_g` / `.weight_v` are folded here (`_fold_dim0`); a folded file's
+    `.weight` is taken as it is. Every resampling filter (`.upsample.filter`,
+    `.downsample.lowpass.filter`) must equal `ops/alias_free.py:
+    kaiser_sinc_filter` to rounding, else this raises: the port computes its
+    own."""
+    dev = resolve_device(device)
+    h = kaiser_sinc_filter().numpy()
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in sd.items()}
+    port = {}
+    for key, value in sd.items():
+        if key.endswith(".filter"):
+            if value.size != h.size or not np.allclose(value.reshape(-1), h, rtol=0.0, atol=1e-6):
+                raise ValueError(f"{key} is not the 12-tap Kaiser-windowed sinc of BigVGAN's activations")
+        elif key.endswith(".weight_v"):
+            base = key[:-len(".weight_v")]
+            port[base + ".weight"] = _fold_dim0(value, sd[base + ".weight_g"])
+        elif not key.endswith(".weight_g"):
+            port[key] = value
+    model = BigVGANGenerator(cfg)
+    model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in port.items()}, strict=True)
     return model.to(dev).eval()

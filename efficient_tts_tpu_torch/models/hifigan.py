@@ -177,6 +177,16 @@ class HiFiGANGenerator(nn.Module):
             return torch.tanh(x.float())[..., 0]
 
 
+def require_v1_overlap(voc, what: str) -> None:
+    """Raise unless `voc` is a HiFi-GAN generator: `what` cuts the mel into
+    windows whose overlap is sized for V1's receptive field, about 14 mel
+    frames a side, and would stitch another generator (BigVGAN's reaches
+    further) wrong."""
+    if not isinstance(voc, HiFiGANGenerator):
+        raise TypeError(f"{what} sizes its overlap for HiFi-GAN V1's receptive field (about 14 mel frames a "
+                        f"side) and does not take a {type(voc).__name__}; vocode the whole mel in one pass")
+
+
 def generator_chunked(voc: HiFiGANGenerator, mel, compute_dtype=None, mrf_impl: str = "kernel",
                       chunk_frames: int = 256, overlap_frames: int = 24, device="cuda"):
     """`hifigan.py:generator_chunked`: memory-bounded vocoding of a long mel
@@ -187,7 +197,9 @@ def generator_chunked(voc: HiFiGANGenerator, mel, compute_dtype=None, mrf_impl: 
     interior, piece together the full pass: the first window starts at the
     true left edge and the last ends at the true right edge, so their zero
     padding is the full pass's. A mel of at most chunk + 2 * overlap frames
-    takes one full pass. f32 convolutions run without TF32."""
+    takes one full pass. f32 convolutions run without TF32. Another
+    generator than HiFi-GAN's raises (`require_v1_overlap`)."""
+    require_v1_overlap(voc, "generator_chunked")
     dev = resolve_device(device)
     check_module_device(voc, dev)
     mel = torch.as_tensor(mel, device=dev)

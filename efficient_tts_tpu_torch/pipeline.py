@@ -1,7 +1,8 @@
 """Batched synthesis: text ids -> waveform (counterpart of `efficient_tts_tpu/pipeline.py`).
 
 Either acoustic model of `models/__init__.py` (EFTS-CNN or EFTS-Transformer)
-feeds the HiFi-GAN V1 generator:
+feeds a vocoder, the HiFi-GAN generator or BigVGAN's (any module called as
+`voc(mel, compute_dtype=, mrf_impl=)` with a `cfg.hop_size`):
 
   stage 1 (`predict_lengths`): text -> aligned positions e; the host reads
       back round(e) at the last valid token and picks the smallest mel
@@ -51,7 +52,8 @@ import torch
 from efficient_tts_tpu_torch.models import model_class_for
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNN, as_dtype
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformer
-from efficient_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+from efficient_tts_tpu_torch.models.bigvgan import BigVGANGenerator
+from efficient_tts_tpu_torch.models.hifigan import HiFiGANGenerator, require_v1_overlap
 from efficient_tts_tpu_torch.ops.alignment import boundary_truncation_correction
 from efficient_tts_tpu_torch.parallel.mesh import MODEL_AXIS
 from efficient_tts_tpu_torch.parallel.sharding import gather_batch, shard_module, split_batch
@@ -63,6 +65,7 @@ from efficient_tts_tpu_torch.utils.profiling import span
 
 
 AcousticModel = EftsCNN | EftsTransformer
+Vocoder = HiFiGANGenerator | BigVGANGenerator
 
 
 @contextlib.contextmanager
@@ -134,7 +137,7 @@ def predict_lengths(model: AcousticModel, text, text_lengths, duration_correctio
 
 def synthesize_fixed(
     model: AcousticModel,
-    voc: HiFiGANGenerator,
+    voc: Vocoder,
     text,
     text_lengths,
     t2: int,
@@ -233,7 +236,7 @@ def fetch(handle: Dispatched) -> np.ndarray:
 
 def synthesize_dispatch(
     model: AcousticModel,
-    voc: HiFiGANGenerator,
+    voc: Vocoder,
     text,
     text_lengths,
     bucket_multiple: int = 64,
@@ -290,7 +293,7 @@ def synthesize_dispatch(
 
 def synthesize(
     model: AcousticModel,
-    voc: HiFiGANGenerator,
+    voc: Vocoder,
     text,
     text_lengths,
     bucket_multiple: int = 64,
@@ -321,7 +324,7 @@ def synthesize(
     return fetch(handle), wav_lengths
 
 
-def _vocode_window(voc: HiFiGANGenerator, seg: np.ndarray, dev, compute_dtype, mrf_impl) -> torch.Tensor:
+def _vocode_window(voc: Vocoder, seg: np.ndarray, dev, compute_dtype, mrf_impl) -> torch.Tensor:
     """One host mel window [T, odim] through the generator: [T * hop]."""
     x = torch.from_numpy(np.ascontiguousarray(seg, np.float32)[None]).to(dev)
     with _full_f32():
@@ -329,7 +332,7 @@ def _vocode_window(voc: HiFiGANGenerator, seg: np.ndarray, dev, compute_dtype, m
 
 
 def stream_vocoder(
-    voc: HiFiGANGenerator,
+    voc: Vocoder,
     mel,
     chunk_frames: int = 64,
     overlap_frames: int = 24,
@@ -344,7 +347,9 @@ def stream_vocoder(
     for any length, and the first chunk comes after one small window. An
     utterance of at most chunk + 2 * overlap frames is one window, zero-
     padded to chunk_frames rounded up (at most chunk + 2 * overlap). Returns
-    a generator; the device is checked at the call."""
+    a generator; the device and the generator are checked at the call (a
+    BigVGAN generator raises: `models/hifigan.py:require_v1_overlap`)."""
+    require_v1_overlap(voc, "stream_vocoder")
     dev = resolve_device(device)
     check_module_device(voc, dev)
     return _stream(voc, np.asarray(mel), dev, chunk_frames, overlap_frames, compute_dtype, mrf_impl)
@@ -384,7 +389,7 @@ def _mode_tokens(mode: str) -> set:
     return tokens
 
 
-def _vocode_frames(voc: HiFiGANGenerator, mel: torch.Tensor, mesh, cdt, overlap_frames: int = 24) -> torch.Tensor:
+def _vocode_frames(voc: Vocoder, mel: torch.Tensor, mesh, cdt, overlap_frames: int = 24) -> torch.Tensor:
     """sp: [B, t2, odim] -> [B, t2 * hop] on every rank of the model group.
     Rank j of m vocodes frames [j t2 / m, (j + 1) t2 / m) in a window that
     reaches `overlap_frames` further on each side where the mel goes on, and
@@ -393,7 +398,9 @@ def _vocode_frames(voc: HiFiGANGenerator, mel: torch.Tensor, mesh, cdt, overlap_
     `models/hifigan.py:generator_chunked`, whose windows these are where m
     divides t2 (the first starts at the true left edge, the last ends at the
     true right edge, so their zero padding is the full pass's). The
-    interiors, padded to the longest, are gathered along time."""
+    interiors, padded to the longest, are gathered along time. A BigVGAN
+    generator raises (`models/hifigan.py:require_v1_overlap`)."""
+    require_v1_overlap(voc, "the sequence-parallel vocoder")
     t, hop, ov = mel.shape[1], voc.cfg.total_upsampling, overlap_frames
     m = mesh.shape[MODEL_AXIS]
     bounds = [(i * t // m, (i + 1) * t // m) for i in range(m)]
@@ -409,7 +416,7 @@ def _vocode_frames(voc: HiFiGANGenerator, mel: torch.Tensor, mesh, cdt, overlap_
 
 def synthesize_fixed_sharded(
     model: AcousticModel,
-    voc: HiFiGANGenerator,
+    voc: Vocoder,
     text,
     text_lengths,
     t2: int,

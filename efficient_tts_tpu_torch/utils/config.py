@@ -3,7 +3,8 @@
 Counterpart of `efficient_tts_tpu/utils/config.py` (`load_config`,
 `dump_config`, `model_config_from_dict`, `vocoder_config_from_dict`,
 `vocoder_config_near_checkpoint`). The optimizer block is read by
-`train/optim.py:optimizer_from_dict`.
+`train/optim.py:optimizer_from_dict`. A config's top-level `vocoder_name`
+picks the vocoder: "HiFiGAN" (the default) or "BigVGAN".
 
 PyYAML is imported only when a file is read, and only when the text is not
 JSON: a config written as JSON (which is also YAML) loads without it.
@@ -11,9 +12,11 @@ JSON: a config written as JSON (which is also YAML) loads without it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
+from efficient_tts_tpu_torch.models.bigvgan import BigVGANConfig
 from efficient_tts_tpu_torch.models.duration_model import DurationModelConfig
 from efficient_tts_tpu_torch.models.efficient_tts import EftsCNNConfig
 from efficient_tts_tpu_torch.models.efficient_tts_transformer import EftsTransformerConfig
@@ -72,17 +75,38 @@ def _deep_tuple(v):
     return tuple(_deep_tuple(x) for x in v) if isinstance(v, list) else v
 
 
-def vocoder_config_from_dict(config: dict) -> HiFiGANConfig:
-    """`HiFiGANConfig` from a config dict's `vocoder_params`, nested lists
-    made tuples (the config is a frozen, hashable dataclass)."""
-    return HiFiGANConfig(**{k: _deep_tuple(v) for k, v in dict(config.get("vocoder_params", {})).items()})
+VOCODER_CONFIGS = {"HiFiGAN": HiFiGANConfig, "BigVGAN": BigVGANConfig}
 
 
-def vocoder_config_near_checkpoint(path: str | None) -> HiFiGANConfig:
-    """The HiFiGANConfig of a vocoder checkpoint: from the `config.yml` beside
-    it when there is one, else the defaults (V1)."""
+def vocoder_config_from_dict(config: dict) -> HiFiGANConfig | BigVGANConfig:
+    """The vocoder's config from a config dict's `vocoder_name` (default
+    "HiFiGAN") and `vocoder_params`, nested lists made tuples (the config is
+    a frozen, hashable dataclass)."""
+    name = config.get("vocoder_name", "HiFiGAN")
+    if name not in VOCODER_CONFIGS:
+        raise ValueError(f"unknown vocoder_name: {name!r} (expected one of {sorted(VOCODER_CONFIGS)})")
+    return VOCODER_CONFIGS[name](**{k: _deep_tuple(v) for k, v in dict(config.get("vocoder_params", {})).items()})
+
+
+def published_vocoder_config(config: dict) -> HiFiGANConfig | BigVGANConfig:
+    """The config of a vocoder repository's own flat `config.json` (its
+    widths at the top level, beside training settings this port does not
+    read): BigVGAN's when it names an `activation` (NVIDIA/BigVGAN), else
+    HiFi-GAN's (jik876/hifi-gan)."""
+    cls = BigVGANConfig if "activation" in config else HiFiGANConfig
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: _deep_tuple(v) for k, v in config.items() if k in fields})
+
+
+def vocoder_config_near_checkpoint(path: str | None) -> HiFiGANConfig | BigVGANConfig:
+    """The config of a vocoder checkpoint: from the `config.yml` beside it
+    when there is one (`vocoder_config_from_dict`), else from a published
+    repository's `config.json` beside it (`published_vocoder_config`), else
+    the HiFi-GAN V1 defaults."""
     if path:
-        cfg_file = os.path.join(os.path.dirname(os.path.abspath(path)), "config.yml")
-        if os.path.exists(cfg_file):
-            return vocoder_config_from_dict(load_config(cfg_file))
+        here = os.path.dirname(os.path.abspath(path))
+        if os.path.exists(os.path.join(here, "config.yml")):
+            return vocoder_config_from_dict(load_config(os.path.join(here, "config.yml")))
+        if os.path.exists(os.path.join(here, "config.json")):
+            return published_vocoder_config(load_config(os.path.join(here, "config.json")))
     return HiFiGANConfig()

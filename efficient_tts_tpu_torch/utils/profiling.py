@@ -4,7 +4,7 @@ Counterpart of `efficient_tts_tpu/utils/profiling.py`, less its RTF meter.
 
 `span(name)` marks a stretch of the port's host work at a layer boundary
 (`serve.*`, `engine.*`, `pipeline.*`, `efts.decode`, `hifigan.generator`,
-`train.*`). While no torch profiler runs, it costs one check of the
+`bigvgan.generator`, `bigvgan.act`, `train.*`). While no torch profiler runs, it costs one check of the
 profiler's process-wide flag. While one runs, on any thread, it enters
 `torch.profiler.record_function` (so the profiler's timeline shows it on
 the threads the profiler records) and appends a `Span` to a bounded buffer
